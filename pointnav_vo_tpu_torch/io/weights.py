@@ -1,0 +1,179 @@
+"""Carry weights across: flax variable trees (nested dicts of numpy arrays)
+-> state dicts of the port's modules, with the reference's key names.
+
+The port's own copy of the key mapping of ``io/torch_export.py``: conv
+HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
+``weight``, RunningMeanAndVar ``(C,)`` stats -> ``(1, C, 1, 1)`` buffers;
+the LSTM matrices are stored in torch's layout already and pass through.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+
+
+def _conv(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w, (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _dense(w: np.ndarray) -> np.ndarray:
+    return np.transpose(w)
+
+
+_KIND = {"conv": _conv, "dense": _dense, "plain": lambda v: v}
+
+# position inside a block's ``convs`` Sequential (conv, gn, relu, conv, gn)
+_CONVS_IDX = {"conv1": "0", "gn1": "1", "conv2": "3", "gn2": "4"}
+
+
+def _wb(leaf: str) -> str:
+    return {"kernel": "weight", "scale": "weight", "bias": "bias"}[leaf]
+
+
+def _linear(key: str, leaf: str, v: np.ndarray) -> Tuple[str, np.ndarray]:
+    return f"{key}.{_wb(leaf)}", (_dense(v) if leaf == "kernel" else v)
+
+
+def _backbone_key(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """flax path under ``backbone`` -> (key suffix, kind)."""
+    name, leaf = path[0], path[-1]
+    if name == "conv1":
+        return "conv1.0.weight", "conv"
+    if name == "gn1":
+        return f"conv1.1.{_wb(leaf)}", "plain"
+    layer, block = name.rsplit("_", 1)  # layer<L>_<B> -> layer<L>.<B>
+    base = f"{layer}.{block}"
+    sub = path[1]
+    if sub in _CONVS_IDX:
+        kind = "conv" if sub.startswith("conv") else "plain"
+        return f"{base}.convs.{_CONVS_IDX[sub]}.{_wb(leaf)}", kind
+    if sub == "down_conv":
+        return f"{base}.downsample.0.weight", "conv"
+    if sub == "down_gn":
+        return f"{base}.downsample.1.{_wb(leaf)}", "plain"
+    raise KeyError(f"unrecognized backbone path: {'.'.join(path)}")
+
+
+def _encoder_entry(rest: Tuple[str, ...], v: np.ndarray, prefix: str):
+    leaf = rest[-1]
+    if rest[0] == "backbone":
+        key, kind = _backbone_key(rest[1:])
+        return f"{prefix}backbone.{key}", _KIND[kind](v)
+    if rest[0] == "compression_conv":
+        return f"{prefix}compression.0.weight", _conv(v)
+    if rest[0] == "compression_gn":
+        return f"{prefix}compression.1.{_wb(leaf)}", v
+    raise KeyError(f"unrecognized visual_encoder path: {'.'.join(rest)}")
+
+
+def _rmv_entries(stats: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    rmv = stats["visual_encoder"]["rmv"]
+    key = f"{prefix}running_mean_and_var."
+    return {
+        key + "_mean": np.asarray(rmv["mean"], np.float32).reshape(1, -1, 1, 1),
+        key + "_var": np.asarray(rmv["var"], np.float32).reshape(1, -1, 1, 1),
+        key + "_count": np.asarray(rmv["count"], np.float32).reshape(()),
+    }
+
+
+def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def vo_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``VOCNN`` variables -> state dict of :class:`models.vo_cnn.VOCNN`."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(variables.get("params", {})):
+        head, leaf = path[0], path[-1]
+        if head == "visual_encoder":
+            key, val = _encoder_entry(path[1:], v, "visual_encoder.")
+        elif head == "visual_fc":  # Sequential(Flatten, Dropout, Linear, ReLU)
+            key, val = _linear("visual_fc.2", leaf, v)
+        elif head == "output_head":  # Sequential(Dropout, Linear)
+            key, val = _linear("output_head.1", leaf, v)
+        else:
+            raise KeyError(f"unrecognized VO param: {'.'.join(path)}")
+        sd[key] = val
+    sd.update(_rmv_entries(variables["batch_stats"], "visual_encoder."))
+    return _to_torch(sd)
+
+
+def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``PointNavActorCritic`` variables (the depth policy, which has no
+    whitening statistics) -> state dict of
+    :class:`models.policy.PointNavActorCritic`."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in _flatten(variables.get("params", {})):
+        head, leaf = path[0], path[-1]
+        if head == "prev_action_embedding":
+            key, val = "net.prev_action_embedding.weight", v
+        elif head == "tgt_embeding":
+            key, val = _linear("net.tgt_embeding", leaf, v)
+        elif head == "visual_encoder":
+            key, val = _encoder_entry(path[1:], v, "net.visual_encoder.")
+        elif head == "visual_fc":  # Sequential(Flatten, Linear, ReLU)
+            key, val = _linear("net.visual_fc.1", leaf, v)
+        elif head == "state_encoder":  # w_ih_l0 -> rnn.weight_ih_l0
+            nm = path[1].replace("w_", "weight_").replace("b_", "bias_")
+            key, val = f"net.state_encoder.rnn.{nm}", v
+        elif head == "action_head":
+            key, val = _linear("action_distribution.linear", leaf, v)
+        elif head == "critic":
+            key, val = _linear("critic.fc", leaf, v)
+        else:
+            raise KeyError(f"unrecognized policy param: {'.'.join(path)}")
+        sd[key] = val
+    return _to_torch(sd)
+
+
+def split_expert_variables(stacked: Mapping[str, Any], n_experts: int = 3) -> List[Dict]:
+    """Slice a stacked ``[n_experts, ...]`` expert tree into one tree each."""
+
+    def take(tree, i):
+        return {k: (take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+                for k, v in tree.items()}
+
+    return [take(stacked, i) for i in range(n_experts)]
+
+
+def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``generator`` (a CPU generator; build the
+    module on the CPU, then move it): fan-in-scaled normal convs and linears,
+    unit GroupNorm, identity whitening, torch's uniform range for the LSTM."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = math.prod(m.weight.shape[1:])
+                m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0, generator=generator)
+            elif isinstance(m, nn.LSTM):
+                bound = 1.0 / math.sqrt(m.hidden_size)
+                for p in m.parameters():
+                    p.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, RunningMeanAndVar):
+                m._mean.zero_()
+                m._var.fill_(1.0)
+    return module

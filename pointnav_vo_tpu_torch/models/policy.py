@@ -1,0 +1,127 @@
+"""Navigation actor-critic (counterpart of ``models/policy.py``), the deployed
+``resnet_rnn_policy``: a depth GroupNorm-ResNet18 behind a 2x2 avg-pool, the
+goal encoded as ``[rho, cos(-phi), sin(-phi)] -> Linear(32)``, a 32-d
+previous-action embedding with the +1 shift and done-masking, a 2-layer
+LSTM, a categorical action head and a linear critic.
+
+Module names follow the reference state dict (without the ``actor_critic.``
+prefix): ``net.visual_encoder``, ``net.visual_fc.1``, ``net.tgt_embeding``,
+``net.prev_action_embedding``, ``net.state_encoder.rnn``,
+``action_distribution.linear`` and ``critic.fc``.  Depth input only (the
+deployed policy's; rgb policies, which also whiten their input, are not
+ported yet), single step (the sequence form belongs to training).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from pointnav_vo_tpu_torch.common import N_ACTS
+from pointnav_vo_tpu_torch.models import resnet as resnet_lib
+from pointnav_vo_tpu_torch.models.rnn import RNNStateEncoder
+from pointnav_vo_tpu_torch.models.vo_cnn import compression_channels
+
+PREV_ACTION_EMBED_DIM = 32
+GOAL_EMBED_DIM = 32
+NUM_RECURRENT_LAYERS = 2
+
+
+class PolicyResNetEncoder(nn.Module):
+    """Visual trunk: avg-pool/2 (floor) -> backbone -> compression."""
+
+    def __init__(self, image_size: Tuple[int, int] = (192, 341), baseplanes: int = 32):
+        super().__init__()
+        h, w = image_size
+        fh, fw = math.ceil((h // 2) / 32), math.ceil((w // 2) / 32)
+        self.output_shape = (compression_channels(fh, fw), fh, fw)
+        self.backbone = resnet_lib.resnet18(1, base_planes=baseplanes,
+                                            ngroups=baseplanes // 2)
+        ch = self.output_shape[0]
+        self.compression = nn.Sequential(
+            nn.Conv2d(self.backbone.final_channels, ch, 3, padding=1, bias=False),
+            resnet_lib.group_norm(1, ch),
+            nn.ReLU(True),
+        )
+
+    def forward(self, depth: torch.Tensor) -> torch.Tensor:
+        """depth ``[N, H, W, 1]`` -> ``[N, C, fh, fw]``."""
+        x = F.avg_pool2d(depth.float().permute(0, 3, 1, 2), 2)
+        return self.compression(self.backbone(x))
+
+
+class _Net(nn.Module):
+    def __init__(self, image_size, hidden_size, baseplanes):
+        super().__init__()
+        self.visual_encoder = PolicyResNetEncoder(image_size, baseplanes)
+        flat = math.prod(self.visual_encoder.output_shape)
+        self.visual_fc = nn.Sequential(nn.Flatten(), nn.Linear(flat, hidden_size),
+                                       nn.ReLU(True))
+        self.tgt_embeding = nn.Linear(3, GOAL_EMBED_DIM)
+        self.prev_action_embedding = nn.Embedding(N_ACTS + 1, PREV_ACTION_EMBED_DIM)
+        self.state_encoder = RNNStateEncoder(
+            hidden_size + GOAL_EMBED_DIM + PREV_ACTION_EMBED_DIM, hidden_size,
+            NUM_RECURRENT_LAYERS)
+
+
+class _CategoricalHead(nn.Module):
+    def __init__(self, hidden_size):
+        super().__init__()
+        self.linear = nn.Linear(hidden_size, N_ACTS)
+
+
+class _CriticHead(nn.Module):
+    def __init__(self, hidden_size):
+        super().__init__()
+        self.fc = nn.Linear(hidden_size, 1)
+
+
+class PointNavActorCritic(nn.Module):
+    """Returns (logits ``[N, 4]``, value ``[N, 1]``, hidden')."""
+
+    def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
+                 baseplanes: int = 32):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.net = _Net(image_size, hidden_size, baseplanes)
+        self.action_distribution = _CategoricalHead(hidden_size)
+        self.critic = _CriticHead(hidden_size)
+
+    @property
+    def num_packed_hidden(self) -> int:
+        return self.net.state_encoder.num_recurrent_layers
+
+    def initial_hidden(self, num_envs: int, device=None) -> torch.Tensor:
+        return torch.zeros(self.num_packed_hidden, num_envs, self.hidden_size,
+                           device=device)
+
+    def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
+                prev_actions: torch.Tensor, masks: torch.Tensor):
+        """observations: ``depth`` ``[N, H, W, 1]`` and
+        ``pointgoal_with_gps_compass`` ``[N, 2]``; hidden ``[2L, N, H]``;
+        prev_actions ``[N, 1]`` int; masks ``[N, 1]`` float."""
+        net = self.net
+        vis = net.visual_fc(net.visual_encoder(observations["depth"]))
+        goal = observations["pointgoal_with_gps_compass"].float()
+        goal3 = torch.stack([goal[:, 0], torch.cos(-goal[:, 1]),
+                             torch.sin(-goal[:, 1])], dim=-1)
+        # +1 shift so action "none" (episode start, masked to 0) has its own row
+        prev_idx = ((prev_actions.float() + 1.0) * masks).long()
+        x = torch.cat([vis, net.tgt_embeding(goal3),
+                       net.prev_action_embedding(prev_idx[:, 0])], dim=-1)
+        x, hidden = net.state_encoder(x, hidden, masks)
+        logits = self.action_distribution.linear(x)
+        value = self.critic.fc(x)
+        return logits, value, hidden
+
+
+def mode_action(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1, keepdim=True)
+
+
+def action_log_prob(logits: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+    return torch.gather(F.log_softmax(logits, dim=-1), -1, actions.long())
