@@ -9,9 +9,15 @@ Phases, each printing a line; any failure exits non-zero:
    (all started together), its ptxas register/shared-memory report, and the
    card's name and power limit;
 2. kernel check: ``bin_counts`` on random bins and on ``pixel_bins`` of
-   scripted-env depth at batch 1, 32 and 512, each ``torch.equal`` to its
-   plain version on the card; CUDA-event times of the kernel, the plain
-   version and ``torch.bincount`` (a yardstick only) beside the memory bound;
+   scripted-env depth at batch 1, 32 and 512, and on a 190-row grid, a grid
+   cut into bands of rows, more points per image than a 16-bit count holds,
+   one hot cell, all points dropped and batch 0, each ``torch.equal`` to its
+   plain version on the card.  Times, on scripted-env depth, in two turns:
+   ``device_ms``, the kernel's own device time (torch.profiler, L2 flushed
+   before each launch by writing 256 MiB), also unflushed; ``call_ms``, the
+   wrapper's time per call back to back (CUDA events); the plain version's
+   and ``torch.bincount``'s device time (a yardstick only), beside the
+   memory bound, and the cluster plan the wrapper chose;
 3. main path: ``Evaluator.run`` of the det VO-in-the-loop eval at full
    width (three ``vo_cnn_rgb_d_dd_top_down`` experts and the ResNet18 +
    2-layer LSTM-512 policy at 341x192, seeded random weights, fp32, TF32
@@ -42,6 +48,7 @@ KERNEL_BATCHES = (1, 32, 512)
 N_ENVS = 32
 STEADY_BATCH = 512
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+_FLUSH_KERNEL = "bitwise_not"  # the L2 flush's kernel, left out of device times
 SEED = 0
 
 
@@ -121,6 +128,93 @@ def _scripted_depth(n, seed):
     return make_scripted_vector_env(env_cfg, n, seed=seed).reset()["depth"][..., 0]
 
 
+def _device_ms(fn, iters, flush=None):
+    """Device time per call of ``fn()`` in ms from torch.profiler: the sum
+    of the kernels it launches, over ``iters`` calls, each after ``flush``
+    (an L2 flush) when one is given."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    per = [e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0 and _FLUSH_KERNEL not in e.key]
+    if not per:
+        raise AssertionError("device time not measured: the profiler saw no kernels")
+    return sum(per)
+
+
+def _check_equal(got, want, what):
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not torch.equal(got, want):
+        raise AssertionError(f"bin_counts != plain ({what}): max abs err {err}")
+    return err
+
+
+def _edge_cases(dev):
+    """Another grid height, a grid in two bands of rows, twice the points a
+    16-bit count holds per image, one hot cell holding every point, every
+    point dropped (output from torch.empty over freed garbage) and batch 0;
+    each equal to the plain version."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    rng = np.random.default_rng(SEED + 3)
+    b, n = N_ENVS, BAND * W
+    cases = {}
+    h2 = 190
+    cases["190 rows"] = (
+        torch.from_numpy(rng.integers(-3, h2 + 3, (b, BAND, W)).astype(np.int32)),
+        torch.from_numpy(rng.integers(-3, W + 3, (b, BAND, W)).astype(np.int32)),
+        torch.from_numpy(rng.uniform(size=(b, BAND, W)) < 0.8), h2)
+    hot_r = torch.from_numpy(rng.integers(0, H, (b, 1, 1)).astype(np.int32))
+    hot_c = torch.from_numpy(rng.integers(0, W, (b, 1, 1)).astype(np.int32))
+    h3 = 400  # two bands of rows
+    cases["400 rows in bands"] = (
+        torch.from_numpy(rng.integers(-3, h3 + 3, (2, BAND, W)).astype(np.int32)),
+        torch.from_numpy(rng.integers(-3, W + 3, (2, BAND, W)).astype(np.int32)),
+        torch.from_numpy(rng.uniform(size=(2, BAND, W)) < 0.8), h3)
+    cases["68,200 points per image"] = (
+        torch.from_numpy(rng.integers(0, H, (2, 2 * BAND, W)).astype(np.int32)),
+        torch.from_numpy(rng.integers(0, W, (2, 2 * BAND, W)).astype(np.int32)),
+        torch.ones((2, 2 * BAND, W), dtype=torch.bool), H)
+    cases["hot cell"] = (hot_r.expand(b, BAND, W).contiguous(),
+                         hot_c.expand(b, BAND, W).contiguous(),
+                         torch.ones((b, BAND, W), dtype=torch.bool), H)
+    cases["all dropped"] = (torch.zeros((b, BAND, W), dtype=torch.int32),
+                            torch.zeros((b, BAND, W), dtype=torch.int32),
+                            torch.zeros((b, BAND, W), dtype=torch.bool), H)
+    cases["batch 0"] = (torch.zeros((0, BAND, W), dtype=torch.int32),
+                        torch.zeros((0, BAND, W), dtype=torch.int32),
+                        torch.zeros((0, BAND, W), dtype=torch.bool), H)
+    err = 0.0
+    for what, (pix_r, pix_c, keep, h) in cases.items():
+        pix_r, pix_c, keep = pix_r.to(dev), pix_c.to(dev), keep.to(dev)
+        want = tk.bin_counts_reference(pix_r, pix_c, keep, h, W)
+        garbage = torch.full((pix_r.shape[0], h, W), float("nan"), device=dev)
+        del garbage  # the allocator hands its block to the kernel's output
+        before = tk.launch_counts["bin_counts"]
+        got = tk.bin_counts(pix_r, pix_c, keep, h, W)
+        err = max(err, _check_equal(got, want, what))
+        if tk.launch_counts["bin_counts"] - before != int(pix_r.shape[0] > 0):
+            raise AssertionError(f"{what}: wrong number of launches")
+        if what == "hot cell" and int(want.amax()) != n:
+            raise AssertionError(f"hot cell holds {int(want.amax())} of {n} points")
+        _log("kernel", f"{what}: equal to plain version ({int(want.sum())} points binned)")
+    return err
+
+
 def phase_kernel(dev):
     import torch
 
@@ -130,7 +224,10 @@ def phase_kernel(dev):
     rng = np.random.default_rng(SEED)
     depths = torch.from_numpy(_scripted_depth(max(KERNEL_BATCHES), seed=1000)).to(dev)
     params = TopDownParams(vis_size_h=H, vis_size_w=W)
-    max_err = 0.0
+    # writing 256 MiB evicts the 50 MB L2, so each timed launch reads from HBM
+    scratch = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+    flush = scratch.bitwise_not_
+    max_err = _edge_cases(dev)
     timings = {}
     for b in KERNEL_BATCHES:
         random_bins = (
@@ -139,14 +236,9 @@ def phase_kernel(dev):
             torch.from_numpy(rng.uniform(size=(b, BAND, W)) < 0.8).to(dev))
         depth_bins = pixel_bins(depths[:b].contiguous(), params)
         for kind, bins in (("random", random_bins), ("scripted-depth", depth_bins)):
-            got = tk.bin_counts(*bins, H, W)
             want = tk.bin_counts_reference(*bins, H, W)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            max_err = max(max_err, err)
-            if not torch.equal(got, want):
-                raise AssertionError(f"bin_counts != plain at B={b} ({kind}): "
-                                     f"max abs err {err}")
+            got = tk.bin_counts(*bins, H, W)
+            max_err = max(max_err, _check_equal(got, want, f"B={b} {kind}"))
             _log("kernel", f"B={b} {kind}: equal to plain version "
                            f"({int(want.sum())} points binned)")
         # time on the main path's data: bins of scripted-env depth
@@ -158,20 +250,34 @@ def phase_kernel(dev):
         img = torch.arange(b, device=dev).view(b, 1, 1)
         flat = torch.where(ok, (img * H + pix_r.long()) * W + pix_c.long(),
                            b * H * W).reshape(-1)
-        iters = 200 if b < 512 else 50
+        kernel = lambda: tk.bin_counts(pix_r, pix_c, keep, H, W)  # noqa: E731
+        dev_iters, call_iters = 20, (200 if b < 512 else 50)
+        turns = {"device_ms": [], "call_ms": []}
+        for _ in range(2):
+            turns["device_ms"].append(_device_ms(kernel, dev_iters, flush))
+            turns["call_ms"].append(_time_ms(kernel, call_iters))
+        plan = tk.card_plan(b, BAND * W, H, W, dev)
         t = {
-            "ms": _time_ms(lambda: tk.bin_counts(pix_r, pix_c, keep, H, W), iters),
-            "plain_ms": _time_ms(
-                lambda: tk.bin_counts_reference(pix_r, pix_c, keep, H, W), iters),
-            "library_ms": _time_ms(
-                lambda: torch.bincount(flat, minlength=b * H * W + 1), iters),
+            "device_ms": float(np.mean(turns["device_ms"])),
+            "call_ms": float(np.mean(turns["call_ms"])),
+            "device_ms_l2_warm": _device_ms(kernel, dev_iters),
+            "plain_ms": _device_ms(
+                lambda: tk.bin_counts_reference(pix_r, pix_c, keep, H, W), dev_iters, flush),
+            "library_ms": _device_ms(
+                lambda: torch.bincount(flat, minlength=b * H * W + 1), dev_iters, flush),
             "bound_ms": bound_ms,
             "bytes": nbytes,
+            "cluster": plan.cluster,
+            "turns": turns,
         }
         timings[b] = t
-        _log("kernel", f"B={b}: kernel_ms={t['ms']:.5f} plain_ms={t['plain_ms']:.5f} "
-                       f"library_ms(torch.bincount)={t['library_ms']:.5f} "
-                       f"bound_ms={bound_ms:.5f} ({nbytes} B over 3.35 TB/s)")
+        _log("kernel", f"B={b}: device_ms={t['device_ms']:.5f} (L2 flushed; "
+                       f"{t['device_ms_l2_warm']:.5f} unflushed) call_ms={t['call_ms']:.5f} "
+                       f"plain_ms={t['plain_ms']:.5f} library_ms(torch.bincount)="
+                       f"{t['library_ms']:.5f} bound_ms={bound_ms:.5f} "
+                       f"({nbytes} B over 3.35 TB/s, {100 * bound_ms / t['device_ms']:.1f} % "
+                       f"of bound), cluster of {plan.cluster}; turns " + json.dumps(turns))
+    del scratch
     return max_err, timings
 
 
@@ -360,11 +466,16 @@ def main() -> int:
         "replaces": "pointnav_vo_tpu/ops/topdown_pallas.py:81",
         "launches": launches["bin_counts"],
         "max_abs_err": max_err,
-        "ms": t32["ms"],
+        "ms": t32["device_ms"],
         "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t32["library_ms"],
+        "device_ms": t32["device_ms"],
+        "call_ms": t32["call_ms"],
+        "batches": {str(b): {k: v for k, v in t.items() if k != "turns"}
+                    for b, t in timings.items()},
+        "turns": {str(b): t["turns"] for b, t in timings.items()},
     }]}
     print(json.dumps(record))
     print(card)
