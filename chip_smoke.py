@@ -9,7 +9,8 @@ Phases, each printing a line; any failure exits non-zero:
    (all started together), its ptxas register/shared-memory report, and the
    card's name and power limit;
 2. kernel check: ``bin_counts`` on random bins and on ``pixel_bins`` of
-   scripted-env depth at batch 1, 32 and 512, and on a 190-row grid, a grid
+   scripted-env depth at batch 1, 32, 64, 128 and 512 (64 and 128: the
+   training batches), and on a 190-row grid, a grid
    cut into bands of rows, more points per image than a 16-bit count holds,
    one hot cell, all points dropped and batch 0, each ``torch.equal`` to its
    plain version on the card.  Times, on scripted-env depth, in two turns:
@@ -24,8 +25,26 @@ Phases, each printing a line; any failure exits non-zero:
    off) over 32 scripted envs, an exact set of 32 episodes; the kernel's
    launch count must rise by exactly steps + 1.  Then the per-step time of
    ``fused_vo_act_step`` and one step held against the same step on the CPU;
-4. steady-state VO: ``VOEnsemble.predict_step_cached`` at batch 512 with a
-   70/15/15 forward/left/right action mix, frame-pairs/s.
+4. rnd eval: ``Evaluator.run`` again with the experts in rnd mode (10
+   dropout passes, mean and std) and sampled actions, an exact set of 32
+   episodes: finite aggregates, ``vo_pred_std_mean > 0``, steps + 1
+   launches.  Then the rnd step's time, a profiler breakdown, and one rnd
+   step held against the CPU on the same dropout masks (mode actions);
+5. steady-state VO: ``VOEnsemble.predict_step_cached`` at batch 512 with a
+   70/15/15 forward/left/right action mix, frame-pairs/s;
+6. VO training (``VORegressionEngine``, full width, seeded experts, frame
+   pairs from the scripted env held in memory: the card has no h5py):
+   (a) the forward stage at batch 128: ``train_epoch`` over 8 steps, 8 steps
+   on one fixed batch with fixed dropout masks (its loss must fall),
+   ``evaluate`` over a ragged
+   eval set; (b) the joint turn stage, 64 twin-packed entries a batch with
+   the inverse loss: the same, ``debug_geo/*`` under 1e-4; each with
+   ``bin_counts`` launched exactly twice a step (prev and cur frames) and
+   twice an eval batch, frame-pairs/s, peak memory and a profiler
+   breakdown; (c) one train step of each stage at batch 8 (dropout off)
+   held against the same step on the CPU: loss, every gradient (beside
+   both devices' distance from a float64 step) and the whitening
+   statistics.
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name/power line; the last line is the run's JSON verdict.
@@ -35,6 +54,7 @@ Exits non-zero, printing no verdict, where no CUDA card is present.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,9 +64,14 @@ import numpy as np
 
 H, W = 192, 341  # full width of the deployed models
 BAND = min(100, H)  # 2 * rows_around_center rows of candidate points
-KERNEL_BATCHES = (1, 32, 512)
+KERNEL_BATCHES = (1, 32, 64, 128, 512)
 N_ENVS = 32
 STEADY_BATCH = 512
+RND_PASSES = 10  # VO.REGRESS_MODEL rnd_mode_n
+TRAIN_BATCH = 128  # configs/vo/vo_pointnav.yaml VO.TRAIN.batch_size
+TRAIN_STEPS = 8
+EVAL_PAIRS = 300  # three eval batches, the last one padded
+PARITY_BATCH = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 _FLUSH_KERNEL = "bitwise_not"  # the L2 flush's kernel, left out of device times
 SEED = 0
@@ -381,21 +406,98 @@ def phase_main_path(dev):
     got = fused_vo_act_step(policy, vo, **args)
     cpu_args = _fused_inputs(obs0, obs1, actions, torch.device("cpu"), cfg, cpu_policy)
     want = fused_vo_act_step(cpu_policy, cpu_vo, **cpu_args)
-    names = ("goal_cart", "polar", "delta", "value", "action", "logp", "hidden",
+    errs = _compare_step(got, want)
+    _log("main", "card vs CPU fused step (rtol 1e-3, atol 1e-4; actions equal): "
+                 + json.dumps(errs, sort_keys=True))
+    return launches, step_ms, wall, loop_steps
+
+
+def _compare_step(got, want):
+    """Card outputs of ``fused_vo_act_step`` against the CPU's: actions
+    equal, the rest within rtol 1e-3 / atol 1e-4 (fp32 with TF32 off: cuDNN
+    and the CPU sum in other orders).  Returns the max abs errors."""
+    import torch
+
+    names = ("goal_cart", "polar", "delta", "std", "value", "action", "logp", "hidden",
              "cur_feats", "est_rot", "est_pos")
     errs = {}
-    for name, g, w in zip(names, got, want):
+    for name, g, w in zip(names, got, want, strict=True):
         g = g.cpu()
         errs[name] = float((g.double() - w.double()).abs().max())
         if name == "action":
             if not torch.equal(g, w):
                 raise AssertionError("card and CPU actions differ")
-        # fp32 with TF32 off: cuDNN and the CPU sum in other orders
         elif not torch.allclose(g, w, rtol=1e-3, atol=1e-4):
             raise AssertionError(f"card vs CPU {name}: max abs err {errs[name]}")
-    _log("main", "card vs CPU fused step (rtol 1e-3, atol 1e-4; actions equal): "
-                 + json.dumps(errs, sort_keys=True))
-    return launches, step_ms, wall, loop_steps
+    return errs
+
+
+def phase_rnd_eval(dev):
+    """The eval loop with the VO in rnd mode and sampled actions."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator, fused_vo_act_step
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    n_envs = n_episodes = N_ENVS
+    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, mode="rnd", rnd_mode_n=RND_PASSES)
+    vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED)
+    env_cfg = EnvConfig(image_h=H, image_w=W, max_episode_steps=20)
+    ev = Evaluator(model=policy, envs=make_scripted_vector_env(env_cfg, n_envs, seed=SEED + 5),
+                   vo_ensemble=vo, device=dev, deterministic=False,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = ev.run(n_episodes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    loop_steps = max(r.steps for r in ev.results)
+    _log("rnd", "Evaluator.run: " + json.dumps(agg, sort_keys=True))
+    if agg["episodes"] != n_episodes or len(ev.results) != n_episodes:
+        raise AssertionError(f"expected exactly {n_episodes} episodes, got {agg['episodes']}")
+    bad = [k for k, v in agg.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite aggregates: {bad}")
+    if not agg["vo_pred_std_mean"] > 0:
+        raise AssertionError(f"rnd mode reports vo_pred_std_mean {agg['vo_pred_std_mean']}")
+    if launches != loop_steps + 1:
+        raise AssertionError(f"bin_counts launched {launches} times over {loop_steps} "
+                             "steps; expected steps + 1")
+    _log("rnd", f"{loop_steps} steps, {int(agg['total_env_steps'])} env steps, wall "
+                f"{wall:.3f} s, bin_counts launches {launches}")
+
+    probe = make_scripted_vector_env(env_cfg, n_envs, seed=SEED + 1)
+    obs0 = probe.reset()
+    rng = np.random.default_rng(SEED)
+    actions = np.where(rng.uniform(size=n_envs) < 0.7, 1,
+                       rng.integers(2, 4, n_envs)).astype(np.int64)
+    obs1 = probe.step(actions)[0]
+    args = _fused_inputs(obs0, obs1, actions, dev, cfg, policy)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step():
+        return fused_vo_act_step(policy, vo, **args, deterministic=False, generator=gen)
+
+    step_ms = _time_ms(step, iters=20)
+    _log("rnd", f"rnd fused_vo_act_step at {n_envs} envs, {RND_PASSES} passes: "
+                f"{step_ms:.4f} ms/step (CUDA events, host gaps included)")
+    _profile(f"rnd fused_vo_act_step at {n_envs} envs", step)
+
+    # the same masks on both, drawn once on the host; mode actions
+    masks = cpu_vo.draw_masks(torch.Generator().manual_seed(SEED + 7), n_envs)
+    got = fused_vo_act_step(policy, vo, **args, vo_masks=tuple(m.to(dev) for m in masks))
+    cpu_args = _fused_inputs(obs0, obs1, actions, torch.device("cpu"), cfg, cpu_policy)
+    want = fused_vo_act_step(cpu_policy, cpu_vo, **cpu_args, vo_masks=masks)
+    if not float(want[3].min()) > 0:
+        raise AssertionError("the CPU's rnd step gave a zero std")
+    errs = _compare_step(got, want)
+    _log("rnd", "card vs CPU rnd step on the same masks (rtol 1e-3, atol 1e-4; actions "
+                "equal): " + json.dumps(errs, sort_keys=True))
+    return launches, step_ms
 
 
 def phase_steady_vo(dev, card):
@@ -441,6 +543,276 @@ def phase_steady_vo(dev, card):
     return ms, pairs
 
 
+class _MemoryPairs:
+    """Frame pairs of the scripted env held in memory, with the reader
+    interface the training engine takes (``iter_batches``,
+    ``num_samples``).  An entry is (prev, cur, action, global poses); with
+    ``twins`` each entry also yields its swapped twin right after it (the
+    opposite turn, its target from the global poses), and a batch of whole
+    twins ships each entry's frames once."""
+
+    def __init__(self, entries, twins):
+        self.entries = entries
+        self.twins = twins
+
+    @classmethod
+    def scripted(cls, n, action_fn, seed, twins=False):
+        from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
+
+        env = ScriptedPointNavEnv(EnvConfig(image_h=H, image_w=W), seed=seed)
+        rng = np.random.default_rng(seed)
+        obs, entries = env.reset(), []
+        while len(entries) < n:
+            a = int(action_fn(rng))
+            pos0, rot0 = env.global_pose()
+            new, _r, done, _i = env.step(a)
+            pos1, rot1 = env.global_pose()
+            if not done:
+                entries.append((obs["rgb"].astype(np.uint8), obs["depth"].astype(np.float16),
+                                new["rgb"].astype(np.uint8), new["depth"].astype(np.float16),
+                                a, (pos0, rot0, pos1, rot1)))
+            obs = env.reset() if done else new
+        return cls(entries, twins)
+
+    def num_samples(self):
+        return len(self.entries) * (2 if self.twins else 1)
+
+    def _samples(self, order):
+        from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
+        from pointnav_vo_tpu_torch.vo.dataset import inverse_delta_from_global
+
+        for e in order:
+            prev_rgb, prev_d, cur_rgb, cur_d, a, (pos0, rot0, pos1, rot1) = self.entries[e]
+            # cur relative to prev; the twin: prev relative to cur
+            yield e, False, a, inverse_delta_from_global(rot1, pos1, rot0, pos0)
+            if self.twins:
+                flipped = TURN_RIGHT if a == TURN_LEFT else TURN_LEFT
+                yield e, True, flipped, inverse_delta_from_global(rot0, pos0, rot1, pos1)
+
+    def iter_batches(self, batch_size, rng=None, drop_last=False):
+        order = np.arange(len(self.entries))
+        if rng is not None:
+            order = rng.permutation(order)
+        pending = []
+        for sample in self._samples(order):
+            pending.append(sample)
+            if len(pending) == batch_size:
+                yield self._assemble(pending)
+                pending = []
+        if pending and not drop_last:
+            yield self._assemble(pending)
+
+    def _assemble(self, items):
+        from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch
+
+        packed = (self.twins and len(items) % 2 == 0
+                  and all(not items[k][1] and items[k + 1][1]
+                          for k in range(0, len(items), 2)))
+        pix = {"prev_rgb": [], "prev_depth": [], "cur_rgb": [], "cur_depth": []}
+        for e, swapped, _a, _d in items:
+            if packed and swapped:
+                continue  # packed twins: each entry's frames once
+            prev_rgb, prev_d, cur_rgb, cur_d = self.entries[e][:4]
+            if swapped:
+                prev_rgb, prev_d, cur_rgb, cur_d = cur_rgb, cur_d, prev_rgb, prev_d
+            for k, v in zip(pix, (prev_rgb, prev_d, cur_rgb, cur_d)):
+                pix[k].append(v)
+        n = len(items)
+        return FramePairBatch(
+            **{k: np.stack(v) for k, v in pix.items()},
+            actions=np.asarray([it[2] for it in items], np.int32),
+            gt_delta=np.stack([it[3] for it in items]).astype(np.float32),
+            data_types=np.asarray([int(it[1]) for it in items], np.int32),
+            dz_regress_mask=np.ones(n, np.float32),
+            chunk_idx=np.zeros(n, np.int32),
+            entry_idx=np.asarray([it[0] for it in items], np.int32),
+            twins_packed=packed)
+
+
+def _train_stage(dev, card, stage, engine, data, eval_data):
+    """train_epoch, fixed-batch steps, and (where ``eval_data``) evaluate,
+    each with its exact launch count; returns the stage's record."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk.reset_launch_counts()
+    stats = engine.train_epoch()
+    launches = tk.launch_counts["bin_counts"]
+    if launches != 2 * TRAIN_STEPS:
+        raise AssertionError(f"{stage}: bin_counts launched {launches} times over "
+                             f"{TRAIN_STEPS} steps; expected 2 a step")
+    if not np.isfinite(stats["mean_total_loss"]):
+        raise AssertionError(f"{stage}: epoch loss {stats['mean_total_loss']}")
+    _log("train", f"{stage} train_epoch: {TRAIN_STEPS} steps of {TRAIN_BATCH}, mean loss "
+                  f"{stats['mean_total_loss']:.6f}, {stats['frame_pairs_per_s']:.2f} "
+                  f"frame-pairs/s over the epoch (host batches included), bin_counts "
+                  f"launches {launches}")
+
+    # the loss of one fixed batch under one fixed set of dropout masks (the
+    # generator restarted before each step): a fixed objective, which 8
+    # steps on it must lower
+    batch = next(data.iter_batches(TRAIN_BATCH))
+    gen_state = engine.generator.get_state()
+    losses, debug_geo = [], []
+    for _ in range(TRAIN_STEPS + 1):  # the last step's loss is after 8 updates
+        engine.generator.set_state(gen_state)
+        m = engine.train_step(batch)
+        losses.append(float(m["total_loss"]))
+        if "debug_geo/abs_diff_rot" in m:
+            debug_geo.append(max(float(m["debug_geo/abs_diff_rot"]),
+                                 float(m["debug_geo/abs_diff_pos"].max())))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{stage}: the fixed batch's loss did not fall: {losses}")
+    if debug_geo and max(debug_geo) >= 1e-4:
+        raise AssertionError(f"{stage}: debug_geo {max(debug_geo)} (ground truth not invariant)")
+    _log("train", f"{stage} fixed batch and dropout masks, loss before each of "
+                  f"{TRAIN_STEPS + 1} steps: " + " ".join(f"{x:.6f}" for x in losses)
+                  + (f"; debug_geo max {max(debug_geo):.3e}" if debug_geo else ""))
+
+    step_ms = _time_ms(lambda: engine.train_step(batch), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pairs = TRAIN_BATCH / (step_ms / 1e3)
+    _log("train", f"{stage} train_step B={TRAIN_BATCH}: {step_ms:.3f} ms/step, "
+                  f"{pairs:.2f} frame-pairs/s (CUDA events, batch upload included), "
+                  f"peak {peak:.2f} GiB on {card}")
+    _profile(f"{stage} train_step B={TRAIN_BATCH}", lambda: engine.train_step(batch), iters=2)
+    record = {"steps": TRAIN_STEPS, "launches": launches, "epoch_loss": stats["mean_total_loss"],
+              "fixed_batch_losses": losses, "epoch_frame_pairs_per_s": stats["frame_pairs_per_s"],
+              "step_ms": step_ms, "frame_pairs_per_s": pairs, "peak_gib": peak}
+    if debug_geo:
+        record["debug_geo_max"] = max(debug_geo)
+    if eval_data is not None:
+        engine.eval_reader = eval_data
+        tk.reset_launch_counts()
+        ev = engine.evaluate()
+        eval_launches = tk.launch_counts["bin_counts"]
+        n_batches = -(-eval_data.num_samples() // TRAIN_BATCH)
+        if eval_launches != 2 * n_batches:
+            raise AssertionError(f"{stage} evaluate: {eval_launches} launches over "
+                                 f"{n_batches} batches; expected 2 a batch")
+        bad = [k for k, v in ev.items() if not np.isfinite(v)]
+        if bad or ev["eval_samples"] != eval_data.num_samples():
+            raise AssertionError(f"{stage} evaluate: {ev}")
+        _log("train", f"{stage} evaluate: {int(ev['eval_samples'])} samples in {n_batches} "
+                      f"batches, bin_counts launches {eval_launches}: "
+                      + json.dumps(ev, sort_keys=True))
+        record["launches"] += eval_launches
+        record["eval_launches"] = eval_launches
+    return record
+
+
+def _train_step_vs_cpu(dev, stage, tcfg, batch, experts):
+    """One train step at full width, dropout off, from the same weights: on
+    the card and on the CPU in float32, and on the CPU in float64 as the
+    reference.  Loss: card vs CPU rtol 1e-4.  Whitening statistics: rtol
+    1e-4, atol 1e-6, counts equal.  Gradients: each tensor's relative L2
+    error, card vs CPU, at most 5e-2.  At full width float32 itself is far
+    from float64 on some tensors: a gradient sums 10^4-10^5 terms that
+    largely cancel (the GroupNorm and conv-weight reductions), and the
+    card's float32 gradients stray from the float64 ones by up to about 2 %
+    of a tensor's max abs (relative L2 about 1 %), the CPU's by a few
+    times less; the per-element bound of the CPU tests (1e-3 of the max)
+    would fail float32 itself here.  Both distances from float64 are
+    printed beside the check."""
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0)
+    runs = {}
+    for name, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("cpu64", torch.device("cpu"), torch.float64)):
+        engine = VORegressionEngine(icfg, tcfg, device=device,
+                                    experts=[copy.deepcopy(m).to(dtype) for m in experts])
+        loss = float(engine.train_step(batch)["total_loss"])
+        runs[name] = (loss, engine.experts)
+    (loss_card, card), (loss_cpu, cpu), (loss_64, cpu64) = runs.values()
+    if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
+        raise AssertionError(f"{stage}: card loss {loss_card} vs CPU {loss_cpu}")
+
+    def errs(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return (float((a - b).norm() / b.norm().clamp(min=1e-30)),
+                float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+
+    worst = {"card_vs_cpu": [0.0, 0.0], "card_vs_fp64": [0.0, 0.0], "cpu_vs_fp64": [0.0, 0.0]}
+    for mc, mh, m64 in zip(card, cpu, cpu64):
+        for (name, pc), (_, ph), (_, p64) in zip(mc.named_parameters(), mh.named_parameters(),
+                                                 m64.named_parameters()):
+            for key, (a, b) in (("card_vs_cpu", (pc.grad, ph.grad)),
+                                ("card_vs_fp64", (pc.grad, p64.grad)),
+                                ("cpu_vs_fp64", (ph.grad, p64.grad))):
+                e = errs(a, b)
+                worst[key] = [max(w, x) for w, x in zip(worst[key], e)]
+                if key == "card_vs_cpu" and e[0] > 5e-2:
+                    raise AssertionError(f"{stage}: gradient of {name}: relative L2 error "
+                                         f"{e[0]} card vs CPU")
+        rc = mc.visual_encoder.running_mean_and_var
+        rh = mh.visual_encoder.running_mean_and_var
+        if not (torch.equal(rc._count.cpu(), rh._count)
+                and torch.allclose(rc._mean.cpu(), rh._mean, rtol=1e-4, atol=1e-6)
+                and torch.allclose(rc._var.cpu(), rh._var, rtol=1e-4, atol=1e-6)):
+            raise AssertionError(f"{stage}: card and CPU whitening statistics differ")
+    _log("train", f"{stage} card vs CPU train step, B={PARITY_BATCH}: loss {loss_card:.8f} "
+                  f"(CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst gradient error over "
+                  "tensors [relative L2, max abs / max abs]: "
+                  + json.dumps(worst) + "; whitening statistics agree")
+    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}
+
+
+def phase_train(dev, card):
+    """VO training: the forward stage and the joint turn stage at full width."""
+    import torch
+
+    from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    t0 = time.perf_counter()
+    forward = _MemoryPairs.scripted(TRAIN_STEPS * TRAIN_BATCH, lambda r: 1, SEED + 10)
+    fwd_eval = _MemoryPairs.scripted(EVAL_PAIRS, lambda r: 1, SEED + 11)
+    turns = _MemoryPairs.scripted(TRAIN_STEPS * TRAIN_BATCH // 2,
+                                  lambda r: r.integers(TURN_LEFT, TURN_RIGHT + 1),
+                                  SEED + 12, twins=True)
+    _log("train", f"scripted frame pairs at {W}x{H}: {forward.num_samples()} forward, "
+                  f"{fwd_eval.num_samples()} forward to evaluate, {len(turns.entries)} turn "
+                  f"entries as {turns.num_samples()} twin samples, in "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(SEED + 3)
+    experts = [seeded_init_(icfg.make_model(), g) for _ in range(3)]  # forward, left, right
+    fwd_cfg = VOTrainConfig(batch_size=TRAIN_BATCH, action_type=1, lr=2.5e-4, seed=SEED)
+    joint_cfg = VOTrainConfig(batch_size=TRAIN_BATCH, action_type=(TURN_LEFT, TURN_RIGHT),
+                              geo_invariance_types=("inverse_joint_train",), lr=1.5e-4,
+                              seed=SEED)
+    records = {
+        "forward": _train_stage(dev, card, "forward", VORegressionEngine(
+            icfg, fwd_cfg, forward, device=dev,
+            experts=[copy.deepcopy(experts[0])]), forward, fwd_eval),
+        "joint": _train_stage(dev, card, "joint", VORegressionEngine(
+            icfg, joint_cfg, turns, device=dev,
+            experts=[copy.deepcopy(m) for m in experts[1:]]), turns, None),
+    }
+    if not next(turns.iter_batches(TRAIN_BATCH)).twins_packed:
+        raise AssertionError("the joint stage's batches are not twin-packed")
+
+    for stage, tcfg, data, ex in (
+            ("forward", dataclasses.replace(fwd_cfg, batch_size=PARITY_BATCH), forward,
+             experts[:1]),
+            ("joint", dataclasses.replace(joint_cfg, batch_size=PARITY_BATCH), turns,
+             experts[1:])):
+        records[stage]["vs_cpu"] = _train_step_vs_cpu(
+            dev, stage, tcfg, next(data.iter_batches(PARITY_BATCH)), ex)
+    return records
+
+
 def main() -> int:
     import torch
 
@@ -456,7 +828,12 @@ def main() -> int:
     card = phase_build()
     max_err, timings = phase_kernel(dev)
     launches, step_ms, wall, loop_steps = phase_main_path(dev)
+    rnd_launches, _rnd_ms = phase_rnd_eval(dev)
     phase_steady_vo(dev, card)
+    train = phase_train(dev, card)
+    by_path = {"det_eval": launches["bin_counts"], "rnd_eval": rnd_launches,
+               "train_forward": train["forward"]["launches"],
+               "train_joint": train["joint"]["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -464,7 +841,8 @@ def main() -> int:
         "route": "cuda",
         "source": "pointnav_vo_tpu_torch/csrc/bin_counts.cu",
         "replaces": "pointnav_vo_tpu/ops/topdown_pallas.py:81",
-        "launches": launches["bin_counts"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": max_err,
         "ms": t32["device_ms"],
         "plain_ms": t32["plain_ms"],
@@ -476,6 +854,7 @@ def main() -> int:
         "batches": {str(b): {k: v for k, v in t.items() if k != "turns"}
                     for b, t in timings.items()},
         "turns": {str(b): t["turns"] for b, t in timings.items()},
+        "train": train,
     }]}
     print(json.dumps(record))
     print(card)

@@ -1,10 +1,16 @@
 """Carry weights across: flax variable trees (nested dicts of numpy arrays)
--> state dicts of the port's modules, with the reference's key names.
+-> state dicts of the port's modules, with the reference's key names, and
+back for the VO expert.
 
 The port's own copy of the key mapping of ``io/torch_export.py``: conv
 HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
 ``weight``, RunningMeanAndVar ``(C,)`` stats -> ``(1, C, 1, 1)`` buffers;
 the LSTM matrices are stored in torch's layout already and pass through.
+
+:func:`vo_state_dicts_from_stacked` reads the JAX training engine's stacked
+expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`
+and :func:`stacked_vo_variables` go the other way.  A gradient tree has
+the parameters' structure, so ``{name: p.grad}`` maps back the same way.
 """
 
 from __future__ import annotations
@@ -113,6 +119,93 @@ def vo_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tens
         sd[key] = val
     sd.update(_rmv_entries(variables["batch_stats"], "visual_encoder."))
     return _to_torch(sd)
+
+
+def _backbone_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """Inverse of :func:`_backbone_key`: torch key under ``backbone.`` ->
+    (flax path, kind)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    gn_leaf = "scale" if leaf == "weight" else "bias"
+    if parts[0] == "conv1":
+        return (("conv1", "kernel"), "conv") if parts[1] == "0" else (("gn1", gn_leaf), "plain")
+    block = f"{parts[0]}_{parts[1]}"
+    if parts[2] == "convs":
+        sub = {v: k for k, v in _CONVS_IDX.items()}[parts[3]]
+        if sub.startswith("conv"):
+            return (block, sub, "kernel"), "conv"
+        return (block, sub, gn_leaf), "plain"
+    if parts[2] == "downsample":
+        if parts[3] == "0":
+            return (block, "down_conv", "kernel"), "conv"
+        return (block, "down_gn", gn_leaf), "plain"
+    raise KeyError(f"unrecognized backbone key: {key}")
+
+
+def _vo_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """Torch parameter key of :class:`models.vo_cnn.VOCNN` -> (flax path
+    under ``params``, kind)."""
+    leaf = key.rsplit(".", 1)[-1]
+    dense_leaf = "kernel" if leaf == "weight" else "bias"
+    if key.startswith("visual_encoder.backbone."):
+        path, kind = _backbone_path(key[len("visual_encoder.backbone."):])
+        return ("visual_encoder", "backbone") + path, kind
+    if key == "visual_encoder.compression.0.weight":
+        return ("visual_encoder", "compression_conv", "kernel"), "conv"
+    if key.startswith("visual_encoder.compression.1."):
+        return ("visual_encoder", "compression_gn",
+                "scale" if leaf == "weight" else "bias"), "plain"
+    if key.startswith("visual_fc.2."):
+        return ("visual_fc", dense_leaf), "dense" if leaf == "weight" else "plain"
+    if key.startswith("output_head.1."):
+        return ("output_head", dense_leaf), "dense" if leaf == "weight" else "plain"
+    raise KeyError(f"unrecognized VO key: {key}")
+
+
+_KIND_INV = {"conv": lambda w: np.transpose(w, (2, 3, 1, 0)),  # OIHW -> HWIO
+             "dense": np.transpose, "plain": lambda v: v}
+
+
+def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def vo_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """State dict (or ``{name: grad}``) of :class:`models.vo_cnn.VOCNN` ->
+    flax ``{"params": ..., "batch_stats": ...}`` of numpy arrays (no
+    ``batch_stats`` when ``sd`` holds no whitening buffers)."""
+    out: Dict[str, Dict] = {"params": {}}
+    rmv = "visual_encoder.running_mean_and_var."
+    for key, v in sd.items():
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if key.startswith(rmv):
+            name = {"_mean": "mean", "_var": "var", "_count": "count"}[key[len(rmv):]]
+            _set(out.setdefault("batch_stats", {}), ("visual_encoder", "rmv", name),
+                 a.reshape(-1) if name != "count" else a.reshape(()))
+            continue
+        path, kind = _vo_param_path(key)
+        _set(out["params"], path, _KIND_INV[kind](a))
+    return out
+
+
+def stacked_vo_variables(trees: List[Mapping[str, Any]]) -> Dict:
+    """Per-expert trees -> one tree with a leading expert axis."""
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([np.asarray(n) for n in nodes])
+
+    return stack(trees)
+
+
+def vo_state_dicts_from_stacked(stacked: Mapping[str, Any]) -> List[Dict[str, torch.Tensor]]:
+    """The JAX training engine's stacked expert variables (leading expert
+    axis, ``batch_stats`` with ``count``) -> one state dict per expert."""
+    n = len(next(iter(_flatten(stacked["params"])))[1])
+    return [vo_state_dict_from_jax(v) for v in split_expert_variables(stacked, n)]
 
 
 def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -119,9 +119,25 @@ class PointNavActorCritic(nn.Module):
         return logits, value, hidden
 
 
+def sample_action(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """One action ``[N, 1]`` drawn from each row's categorical distribution
+    (``generator`` on the logits' device), by the Gumbel-max trick as
+    ``jax.random.categorical`` draws: ``argmax(logits - log E)``, E ~ Exp(1).
+    Not ``torch.multinomial``, whose input check reads a value back to the
+    host and so stalls the eval loop on every step."""
+    e = torch.empty(logits.shape, device=logits.device).exponential_(generator=generator)
+    gumbel = -torch.log(e.clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.argmax(logits.float() + gumbel, dim=-1, keepdim=True)
+
+
 def mode_action(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1, keepdim=True)
 
 
 def action_log_prob(logits: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
     return torch.gather(F.log_softmax(logits, dim=-1), -1, actions.long())
+
+
+def entropy(logits: torch.Tensor) -> torch.Tensor:
+    logp = F.log_softmax(logits, dim=-1)
+    return -(torch.exp(logp) * logp).sum(-1)

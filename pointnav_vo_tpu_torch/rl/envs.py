@@ -150,6 +150,16 @@ class ScriptedPointNavEnv:
     def dist_to_goal(self) -> float:
         return float(np.linalg.norm(self.goal - self.pos))
 
+    def global_pose(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(position ``[x, y, z]``, rotation quaternion ``[x, y, z, w]``) in
+        the world frame."""
+        pos = np.asarray([self.pos[0], 0.0, self.pos[1]], np.float64)
+        half = self.yaw / 2.0
+        return pos, np.asarray([0.0, np.sin(half), 0.0, np.cos(half)], np.float64)
+
+    def goal_position(self) -> np.ndarray:
+        return np.asarray([self.goal[0], 0.0, self.goal[1]], np.float32)
+
     @property
     def episode_over(self) -> bool:
         return self.steps >= self.cfg.max_episode_steps or self.called_stop

@@ -1,4 +1,4 @@
-"""Policy + VO evaluation, det mode (counterpart of ``rl/eval.py``).
+"""Policy + VO evaluation (counterpart of ``rl/eval.py``).
 
 Each step of :meth:`Evaluator.run` steps the envs on the host, then runs
 :func:`fused_vo_act_step` on the device for all envs at once: features of
@@ -9,8 +9,12 @@ packed read brings back what the host bookkeeping needs.
 Tracked diagnostics follow the reference's accounting: navigation metrics
 on episode end, per-step VO L2 error against the env's ground-truth delta,
 dead-reckoned drift against the true episodic pose, and the collision-gated
-stuck counters.  Video, ranked error images, tensorboard and the
-unfused / rnd / multi-device paths are not ported yet.
+stuck counters.  The VO ensemble runs in det or rnd mode (rnd: the mean
+and std over dropout passes, the std reported as ``vo_pred_std_mean``);
+the policy acts by its mode or, with ``deterministic=False``, samples.
+Both draw from one ``torch.Generator`` on the device.  Video, ranked error
+images, tensorboard and the unfused / multi-device paths are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import MOVE_FORWARD, resolve_device
-from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action
+from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.trainer import act_step, propagate_goal
 from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
@@ -36,27 +40,36 @@ STUCK_THRESH = 0.01  # m: a predicted translation below this is "near zero"
 @torch.no_grad()
 def fused_vo_act_step(policy, vo, prev_feats, cur_rgb, cur_depth, actions_np,
                       goal_cart, reset_mask, sensor_polar, hidden, prev_actions,
-                      masks, est_rot, est_pos, est_seed_rot, est_seed_pos):
-    """One det eval step for all envs.
+                      masks, est_rot, est_pos, est_seed_rot, est_seed_pos, *,
+                      deterministic=True, generator=None, vo_masks=None):
+    """One eval step for all envs.
 
     ``prev_feats`` is the previous call's ``cur_feats`` (or
     ``frame_features_packed`` of the start frame); ``actions_np`` are the
-    host actions just taken, which pick each sample's expert.  The drift
-    pose ``(est_rot, est_pos)`` is integrated through the delta and
-    re-seeded where ``reset_mask`` fires.  Returns ``(goal_cart, polar,
-    delta, value, action, logp, hidden, cur_feats, est_rot, est_pos)``.
+    host actions just taken, which pick each sample's expert.  In rnd mode
+    the VO's dropout keep masks are ``vo_masks`` or drawn from
+    ``generator``; with ``deterministic=False`` the action is drawn from
+    ``generator`` after them.  The drift pose ``(est_rot, est_pos)`` is
+    integrated through the delta and re-seeded where ``reset_mask`` fires.
+    Returns ``(goal_cart, polar, delta, std, value, action, logp, hidden,
+    cur_feats, est_rot, est_pos)``; ``std`` is zero in det mode.
     """
-    delta, cur_feats = vo.predict_step_cached(prev_feats, cur_rgb, cur_depth,
-                                              actions_np)
+    cur_feats = frame_features_packed(cur_rgb, cur_depth, vo.cfg)
+    obs = torch.cat([prev_feats, cur_feats], dim=-1)
+    if vo.cfg.mode == "det":
+        delta = vo.predict_packed(obs, actions_np)
+        std = torch.zeros_like(delta)
+    else:
+        delta, std = vo.predict_rnd_packed(obs, actions_np, generator, vo_masks)
     goal_cart, polar = propagate_goal(goal_cart, delta, reset_mask, sensor_polar)
     policy_obs = {"rgb": cur_rgb, "depth": cur_depth,
                   "pointgoal_with_gps_compass": polar}
     logits, value, new_hidden = policy(policy_obs, hidden, prev_actions, masks)
-    action = mode_action(logits)
+    action = mode_action(logits) if deterministic else sample_action(generator, logits)
     new_rot, new_pos = geo.compute_global_state(est_rot, est_pos, delta)
     new_rot = torch.where(reset_mask > 0, est_seed_rot, new_rot)
     new_pos = torch.where(reset_mask > 0, est_seed_pos, new_pos)
-    return (goal_cart, polar, delta, value, action, action_log_prob(logits, action),
+    return (goal_cart, polar, delta, std, value, action, action_log_prob(logits, action),
             new_hidden, cur_feats, new_rot, new_pos)
 
 
@@ -115,16 +128,25 @@ def episode_budgets(num_episodes: int, n_envs: int,
 
 
 class Evaluator:
-    """Batched det eval loop over a VectorEnv.  ``device=None`` means the
-    card, and raises where there is none."""
+    """Batched eval loop over a VectorEnv.  ``device=None`` means the card,
+    and raises where there is none.  ``generator`` (on the device; seeded 0
+    when not given) feeds the VO's rnd-mode dropout and, with
+    ``deterministic=False``, the policy's action draws."""
 
-    def __init__(self, *, model, envs, vo_ensemble, device=None):
+    def __init__(self, *, model, envs, vo_ensemble, device=None, deterministic=True,
+                 generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.envs = envs
         self.vo = vo_ensemble
         if self.vo.device != self.device:
             raise ValueError(f"VO ensemble on {self.vo.device}, evaluator on {self.device}")
+        self.deterministic = deterministic
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, evaluator on {self.device}")
+        self.generator = generator
         self.results: List[EpisodeResult] = []
 
     def _to_device(self, obs: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -171,6 +193,7 @@ class Evaluator:
         episode_rewards = np.zeros(n)
         results: List[EpisodeResult] = []
         vo_l2: List[np.ndarray] = []
+        vo_std: List[np.ndarray] = []
         drift: List[float] = []
         # live MOVE_FORWARD steps whose PREDICTED translation is under
         # STUCK_THRESH (not the reference's collision-gated stuck metric)
@@ -180,14 +203,16 @@ class Evaluator:
         ep_steps = np.zeros(n, np.int64)
         ep_vo_sum = np.zeros(n)
         ep_vo_cnt = np.zeros(n)
+        ep_std_sum = np.zeros(n)
         ep_drift_sum = np.zeros(n)
         ep_drift_cnt = np.zeros(n)
         ep_dx_stuck = np.zeros(n, np.int64)
         ep_dz_stuck = np.zeros(n, np.int64)
         ep_both_stuck = np.zeros(n, np.int64)
 
+        act_gen = None if self.deterministic else self.generator
         _v, action, _lp, hidden = act_step(self.model, obs_dev, hidden,
-                                           prev_actions, masks)
+                                           prev_actions, masks, act_gen)
         # every frame's features are computed once and carried to the next
         # step (envs auto-reset, so the cache always matches the returned obs)
         feats_cache = frame_features_packed(obs_dev["rgb"], obs_dev["depth"],
@@ -217,24 +242,29 @@ class Evaluator:
 
             t0 = time.perf_counter()
             reset = self._tensor(dones)[:, None]
-            (goal_cart, _polar, delta, _value, next_action, _lp, hidden, feats_cache,
-             est_rot, est_pos) = fused_vo_act_step(
+            (goal_cart, _polar, delta, std, _value, next_action, _lp, hidden,
+             feats_cache, est_rot, est_pos) = fused_vo_act_step(
                 self.model, self.vo, feats_cache, new_obs_dev["rgb"],
                 new_obs_dev["depth"], actions_np, goal_cart, reset,
                 new_obs_dev["pointgoal_with_gps_compass"], hidden, action,
-                1.0 - reset, est_rot, est_pos, est_seed_rot, est_seed_pos)
-            # one packed read-back per step: delta, next action, drift pose
-            fetched = torch.cat([delta, next_action.float(), est_pos], dim=1).cpu().numpy()
+                1.0 - reset, est_rot, est_pos, est_seed_rot, est_seed_pos,
+                deterministic=self.deterministic, generator=self.generator)
+            # one packed read-back per step: delta, std, next action, drift pose
+            fetched = torch.cat([delta, std, next_action.float(), est_pos],
+                                dim=1).cpu().numpy()
             delta_np = fetched[:, :3]
-            next_actions_np = fetched[:, 3].astype(np.int64)
-            est = fetched[:, 4:7]
+            std_np = fetched[:, 3:6]
+            next_actions_np = fetched[:, 6].astype(np.int64)
+            est = fetched[:, 7:10]
 
             gt = np.stack([i["gt_delta"] for i in infos])
             live = ~dones & active
             if live.any():
                 errs_all = np.linalg.norm(delta_np - gt, axis=-1)
                 vo_l2.append(errs_all[live])
+                vo_std.append(std_np[live])
                 ep_vo_sum += np.where(live, errs_all, 0.0)
+                ep_std_sum += np.where(live, std_np.mean(-1), 0.0)
                 ep_vo_cnt += live
                 fwd = live & (actions_np == MOVE_FORWARD)
                 dx_small = np.abs(delta_np[:, 0]) < STUCK_THRESH
@@ -275,7 +305,8 @@ class Evaluator:
                         steps=int(ep_steps[i]),
                         vo_l2_mean=(float(ep_vo_sum[i] / ep_vo_cnt[i])
                                     if ep_vo_cnt[i] else nan),
-                        vo_pred_std_mean=0.0 if ep_vo_cnt[i] else nan,
+                        vo_pred_std_mean=(float(ep_std_sum[i] / ep_vo_cnt[i])
+                                          if ep_vo_cnt[i] else nan),
                         drift_mean=(float(ep_drift_sum[i] / ep_drift_cnt[i])
                                     if ep_drift_cnt[i] else nan),
                         episode_id=int(info["episode_id"]),
@@ -288,7 +319,7 @@ class Evaluator:
                         active[i] = False
                 episode_rewards[i] = 0.0
                 ep_steps[i] = 0
-                ep_vo_sum[i] = ep_vo_cnt[i] = 0
+                ep_vo_sum[i] = ep_std_sum[i] = ep_vo_cnt[i] = 0
                 ep_drift_sum[i] = ep_drift_cnt[i] = 0
                 ep_dx_stuck[i] = ep_dz_stuck[i] = ep_both_stuck[i] = 0
 
@@ -324,7 +355,7 @@ class Evaluator:
             cat = np.concatenate(vo_l2)
             agg["vo_l2_mean"] = float(cat.mean())
             agg["vo_l2_max"] = float(cat.max())
-            agg["vo_pred_std_mean"] = 0.0  # det mode
+            agg["vo_pred_std_mean"] = float(np.concatenate(vo_std).mean())
             agg["vo_near_zero_dx"] = float(vo_near_zero["dx"])
             agg["vo_near_zero_dz"] = float(vo_near_zero["dz"])
             agg["vo_near_zero_both"] = float(vo_near_zero["both"])

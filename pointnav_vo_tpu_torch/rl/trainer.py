@@ -5,15 +5,16 @@ from __future__ import annotations
 
 import torch
 
-from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action
+from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
 from pointnav_vo_tpu_torch.ops import geometry as geo
 
 
 @torch.no_grad()
-def act_step(model, observations, hidden, prev_actions, masks):
-    """One deterministic policy step -> (value, action ``[N, 1]``, logp, hidden')."""
+def act_step(model, observations, hidden, prev_actions, masks, generator=None):
+    """One policy step -> (value, action ``[N, 1]``, logp, hidden'): the
+    mode action, or one drawn from ``generator`` where it is given."""
     logits, value, new_hidden = model(observations, hidden, prev_actions, masks)
-    action = mode_action(logits)
+    action = mode_action(logits) if generator is None else sample_action(generator, logits)
     return value, action, action_log_prob(logits, action), new_hidden
 
 

@@ -1,32 +1,47 @@
-"""Action-conditioned VO ensemble, det mode (counterpart of
-``vo/ensemble.py``).
+"""Action-conditioned VO ensemble (counterpart of ``vo/ensemble.py``).
 
 Three experts (forward, left, right; :data:`common.VO_EXPERT_ACTIONS`)
 regress the SE(2) delta between two frames.  Each frame's features are
 computed once (:func:`frame_features_packed`) and the previous frame's are
-reused on the next step.  In det mode every sample runs only its own
-expert: the host groups the rows by action, and each non-empty group is
-gathered with ``index_select``, run, and written back with ``index_copy_``.
-GroupNorm is per sample, so grouping does not change any result.
+reused on the next step.  Every sample runs only its own expert: the host
+groups the rows by action, and each non-empty group is gathered with
+``index_select``, run, and written back with ``index_copy_``.  GroupNorm is
+per sample, so grouping does not change any result.
+
+Two modes, as in the JAX package: ``det`` gives one delta per sample;
+``rnd`` gives the mean and the population std over ``rnd_mode_n`` dropout
+passes.  Dropout sits on the FC trunk only, so rnd mode runs each expert's
+encoder once and its trunk once for all passes.  The whitening statistics
+stay frozen in both modes.
+
+The pair functions (:func:`preprocess_obs_pairs` and the twin-expanding
+:func:`preprocess_obs_pairs_twins`, each with a ``_packed`` form) assemble
+the training batches of ``vo/engine.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import VO_EXPERT_ACTIONS, resolve_device
-from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN, make_vo_model
+from pointnav_vo_tpu_torch.models.vo_cnn import (
+    DROPOUT_P,
+    VOCNN,
+    DropoutMasks,
+    draw_dropout_masks,
+    make_vo_model,
+)
 from pointnav_vo_tpu_torch.ops.depth import discretize_depth
 from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
 
 
 @dataclasses.dataclass(frozen=True)
 class VOInferenceConfig:
-    """Static configuration of the det fp32 VO inference path."""
+    """Static configuration of the fp32 VO inference path."""
 
     model_name: str = "vo_cnn_rgb_d_dd_top_down"
     observation_space: Tuple[str, ...] = ("rgb", "depth", "discretized_depth",
@@ -38,6 +53,13 @@ class VOInferenceConfig:
     min_depth: float = 0.1
     max_depth: float = 10.0
     hfov: float = 70.0  # consumed as "radians": the reference's quirk
+    dropout_p: float = DROPOUT_P
+    mode: str = "det"  # "det" | "rnd"
+    rnd_mode_n: int = 10
+
+    def __post_init__(self):
+        if self.mode not in ("det", "rnd"):
+            raise ValueError(f"mode must be 'det' or 'rnd', got {self.mode!r}")
 
     @property
     def topdown_params(self) -> TopDownParams:
@@ -52,6 +74,7 @@ class VOInferenceConfig:
             observation_size=(self.vis_size_w, self.vis_size_h),
             hidden_size=self.hidden_size,
             discretized_depth_channels=self.discretized_depth_channels,
+            dropout_p=self.dropout_p,
         )
 
 
@@ -101,6 +124,52 @@ def frame_features_packed(rgb: torch.Tensor, depth: torch.Tensor,
     return pack_frame_features(frame_features(rgb, depth, cfg))
 
 
+def pair_from_features(prev_feats: Mapping[str, torch.Tensor],
+                       cur_feats: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The (prev, cur) channel-concatenated pair of each feature."""
+    return {k: torch.cat([prev_feats[k], cur_feats[k]], dim=-1) for k in prev_feats}
+
+
+def _twin_expand(primary: torch.Tensor, swapped: torch.Tensor) -> torch.Tensor:
+    """Interleave: row 2k is ``primary[k]``, row 2k+1 is ``swapped[k]``."""
+    return torch.stack([primary, swapped], dim=1).reshape(
+        (primary.shape[0] * 2,) + tuple(primary.shape[1:]))
+
+
+def preprocess_obs_pairs(prev_rgb, prev_depth, cur_rgb, cur_depth,
+                         cfg: VOInferenceConfig) -> Dict[str, torch.Tensor]:
+    """Per-key pair channels: rgb ``[B,H,W,6]``, depth ``[B,H,W,2]``,
+    discretized_depth ``[B,H,W,2*dd]``, top_down_view ``[B,H,W,2]``."""
+    return pair_from_features(frame_features(prev_rgb, prev_depth, cfg),
+                              frame_features(cur_rgb, cur_depth, cfg))
+
+
+def preprocess_obs_pairs_packed(prev_rgb, prev_depth, cur_rgb, cur_depth,
+                                cfg: VOInferenceConfig) -> torch.Tensor:
+    """The encoder's packed stem input ``[B, H, W, 2C]`` of frame pairs."""
+    return torch.cat([frame_features_packed(prev_rgb, prev_depth, cfg),
+                      frame_features_packed(cur_rgb, cur_depth, cfg)], dim=-1)
+
+
+def preprocess_obs_pairs_twins(prev_rgb, prev_depth, cur_rgb, cur_depth,
+                               cfg: VOInferenceConfig) -> Dict[str, torch.Tensor]:
+    """Twin expansion of E entries into 2E samples, each frame's features
+    computed once: sample 2k pairs (prev[k], cur[k]), sample 2k+1 the
+    swapped (cur[k], prev[k])."""
+    fp = frame_features(prev_rgb, prev_depth, cfg)
+    fc = frame_features(cur_rgb, cur_depth, cfg)
+    return {k: _twin_expand(torch.cat([fp[k], fc[k]], dim=-1),
+                            torch.cat([fc[k], fp[k]], dim=-1)) for k in fp}
+
+
+def preprocess_obs_pairs_twins_packed(prev_rgb, prev_depth, cur_rgb, cur_depth,
+                                      cfg: VOInferenceConfig) -> torch.Tensor:
+    """:func:`preprocess_obs_pairs_twins` as the packed stem block."""
+    fp = frame_features_packed(prev_rgb, prev_depth, cfg)
+    fc = frame_features_packed(cur_rgb, cur_depth, cfg)
+    return _twin_expand(torch.cat([fp, fc], dim=-1), torch.cat([fc, fp], dim=-1))
+
+
 def expert_rows(actions_np) -> list:
     """Per expert, the host row indices of the samples it runs.  STOP and
     any id outside 1..3 clip into the nearest expert (STOP -> forward)."""
@@ -110,7 +179,7 @@ def expert_rows(actions_np) -> list:
 
 
 class VOEnsemble:
-    """Three VO experts with a det own-expert forward."""
+    """Three VO experts with an own-expert forward, det or rnd."""
 
     def __init__(self, cfg: VOInferenceConfig,
                  state_dicts: Sequence[Mapping[str, torch.Tensor]] = None,
@@ -142,12 +211,46 @@ class VOEnsemble:
             out.index_copy_(0, idx, expert(obs_pairs.index_select(0, idx)).float())
         return out
 
+    def draw_masks(self, generator: torch.Generator, batch: int) -> DropoutMasks:
+        """The keep masks of one rnd call, ``[rnd_mode_n, batch, flat]`` and
+        ``[rnd_mode_n, batch, hidden]``, in batch row order."""
+        m = self.experts[0]
+        return draw_dropout_masks(generator, (self.cfg.rnd_mode_n, batch), m.flat_size,
+                                  m.hidden_size, self.cfg.dropout_p)
+
+    @torch.no_grad()
+    def predict_rnd_packed(self, obs_pairs: torch.Tensor, actions_np,
+                           generator: Optional[torch.Generator] = None,
+                           masks: Optional[DropoutMasks] = None):
+        """rnd mode: (mean, std) ``[B, 3]`` over ``rnd_mode_n`` dropout passes
+        of each sample's own expert, std the population std.  The keep masks
+        are ``masks`` (see :meth:`draw_masks`) or drawn from ``generator``.
+        Each expert's encoder runs once; its trunk runs all passes at once."""
+        batch = obs_pairs.shape[0]
+        if masks is None:
+            if generator is None:
+                raise ValueError("rnd mode needs dropout masks or a generator")
+            masks = self.draw_masks(generator, batch)
+        k = self.cfg.rnd_mode_n
+        samples = torch.zeros((k, batch, 3), dtype=torch.float32, device=obs_pairs.device)
+        for expert, rows in zip(self.experts, expert_rows(actions_np)):
+            if rows.size == 0:
+                continue
+            idx = torch.from_numpy(rows).to(obs_pairs.device)
+            feats = expert.visual_encoder(obs_pairs.index_select(0, idx)).flatten(1)
+            own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
+            samples.index_copy_(1, idx, expert.trunk(feats, own).float())
+        return samples.mean(0), samples.std(0, correction=0)
+
     @torch.no_grad()
     def predict_step_cached(self, prev_feats: torch.Tensor, cur_rgb: torch.Tensor,
                             cur_depth: torch.Tensor, actions_np):
         """Steady-state det step: features of the new frame only, paired with
         the cached previous ones.  Returns (delta ``[B, 3]``, cur_feats);
         feed ``cur_feats`` back on the next call."""
+        if self.cfg.mode != "det":
+            raise ValueError("predict_step_cached is the det step; rnd mode runs "
+                             "predict_rnd_packed")
         cur_feats = frame_features_packed(cur_rgb, cur_depth, self.cfg)
         obs = torch.cat([prev_feats, cur_feats], dim=-1)
         return self.predict_packed(obs, actions_np), cur_feats

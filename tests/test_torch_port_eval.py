@@ -48,6 +48,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tier-1 runs six test processes on the box's cores: one torch thread
+    each keeps their small ops from oversubscribing the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+
 def _ensembles(h, w, hidden=64):
     """The same three random experts in both packages."""
     jcfg = JCfg(vis_size_w=w, vis_size_h=h, hidden_size=hidden)
@@ -140,10 +151,11 @@ def test_fused_vo_act_step_matches_jax():
     got = t_fused(tpol.eval(), tens, prev_feats, T(cur_rgb), T(cur_depth), actions,
                   T(goal), T(reset), T(sensor), T(hid), T(actions[:, None]).long(),
                   T(masks), T(est_rot), T(est_pos), T(seed_rot), T(seed_pos))
-    (t_goal, t_polar, t_delta, t_value, t_action, t_logp, t_hid, t_feats,
+    (t_goal, t_polar, t_delta, t_std, t_value, t_action, t_logp, t_hid, t_feats,
      t_rot, t_pos) = [x.numpy() for x in got]
 
     np.testing.assert_array_equal(t_action, j_action)
+    assert not t_std.any()  # det mode
     np.testing.assert_allclose(t_feats, j_feats, rtol=0, atol=2.4e-7)
     for t, j, name in ((t_delta, j_delta, "delta"), (t_goal, j_goal, "goal"),
                        (t_polar, j_polar, "polar"), (t_value, j_value, "value"),
