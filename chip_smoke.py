@@ -9,8 +9,9 @@ Phases, each printing a line; any failure exits non-zero:
    (all started together), its ptxas register/shared-memory report, and the
    card's name and power limit;
 2. kernel check: ``bin_counts`` on random bins and on ``pixel_bins`` of
-   scripted-env depth at batch 1, 32, 64, 128 and 512 (64 and 128: the
-   training batches), and on a 190-row grid, a grid
+   scripted-env depth at batch 1, 2, 32, 64, 128 and 512 (2: the policy
+   training rollout's; 64 and 128: the VO training batches), and on a
+   190-row grid, a grid
    cut into bands of rows, more points per image than a 16-bit count holds,
    one hot cell, all points dropped and batch 0, each ``torch.equal`` to its
    plain version on the card.  Times, on scripted-env depth, in two turns:
@@ -44,7 +45,17 @@ Phases, each printing a line; any failure exits non-zero:
    breakdown; (c) one train step of each stage at batch 8 (dropout off)
    held against the same step on the CPU: loss, every gradient (beside
    both devices' distance from a float64 step) and the whitening
-   statistics.
+   statistics;
+7. policy training (``DDPPOTrainer``, the config of
+   ``configs/rl/ddppo_pointnav.yaml``: the ResNet18 + 2-layer LSTM-512
+   policy and three det VO experts in the loop at 341x192, 2 envs, 128
+   steps a rollout, 2 minibatches, lr 1e-4, seeded weights): ``train`` of 2
+   updates with ``bin_counts`` launched exactly updates x 128 + 1 times,
+   rollout-step and update times, env-steps/s, device idle share and
+   launches per step and per update (torch.profiler), peak memory; the
+   loss of one fixed rollout must fall over 4 updates on it; one rollout
+   step (mode action, VO delta, goal) and one ``ppo_loss`` gradient on a
+   16-step rollout held against the CPU (gradients beside a float64 step).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name/power line; the last line is the run's JSON verdict.
@@ -64,7 +75,7 @@ import numpy as np
 
 H, W = 192, 341  # full width of the deployed models
 BAND = min(100, H)  # 2 * rows_around_center rows of candidate points
-KERNEL_BATCHES = (1, 32, 64, 128, 512)
+KERNEL_BATCHES = (1, 2, 32, 64, 128, 512)
 N_ENVS = 32
 STEADY_BATCH = 512
 RND_PASSES = 10  # VO.REGRESS_MODEL rnd_mode_n
@@ -72,6 +83,11 @@ TRAIN_BATCH = 128  # configs/vo/vo_pointnav.yaml VO.TRAIN.batch_size
 TRAIN_STEPS = 8
 EVAL_PAIRS = 300  # three eval batches, the last one padded
 PARITY_BATCH = 8
+RL_ENVS = 2  # configs/rl/ddppo_pointnav.yaml NUM_PROCESSES
+RL_STEPS = 128  # RL.PPO.num_steps
+RL_UPDATES = 2
+RL_FIXED_UPDATES = 4
+RL_PARITY_STEPS = 16
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 _FLUSH_KERNEL = "bitwise_not"  # the L2 flush's kernel, left out of device times
 SEED = 0
@@ -122,13 +138,16 @@ def _profile(label, fn, iters=3):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
     if busy_ms <= 0:
         _log("profile", f"{label}: device time not measured (profiler saw no kernels)")
-        return
+        return None
+    launches = sum(e.count for e in kernels) / iters
     _log("profile", f"{label}: device busy {busy_ms:.4f} ms of {wall_ms:.4f} ms wall "
                     f"per call ({100 * (1 - busy_ms / wall_ms):.1f} % idle, profiler on), "
-                    f"{sum(e.count for e in kernels) // iters} kernel launches per call")
+                    f"{launches:.0f} kernel launches per call")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log("profile", f"  {e.self_device_time_total / 1e3 / iters:9.4f} ms "
                         f"x{e.count // iters:<4d} {e.key[:90]}")
+    return {"busy_ms": busy_ms, "wall_ms": wall_ms, "idle": 1 - busy_ms / wall_ms,
+            "launches": launches}
 
 
 def phase_build():
@@ -813,6 +832,248 @@ def phase_train(dev, card):
     return records
 
 
+def _rl_trainer(dev, num_steps, seed):
+    """The RL config at full width with seeded weights: the depth policy,
+    three det VO experts in the loop, 2 scripted envs."""
+    import torch
+
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.ppo import PPOConfig
+    from pointnav_vo_tpu_torch.rl.trainer import DDPPOTrainer
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
+
+    # configs/rl/ddppo_pointnav.yaml RL.PPO
+    cfg = PPOConfig(clip_param=0.2, ppo_epoch=1, num_mini_batch=2, value_loss_coef=0.5,
+                    entropy_coef=0.01, lr=1e-4, eps=1e-5, max_grad_norm=0.2,
+                    num_steps=num_steps, use_gae=True, gamma=0.99, tau=0.95,
+                    use_clipped_value_loss=True, use_normalized_advantage=False,
+                    hidden_size=512)
+    vo_cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(seed)
+    vo = VOEnsemble(vo_cfg, experts=[seeded_init_(vo_cfg.make_model(), g) for _ in range(3)],
+                    device=dev)
+    envs = make_scripted_vector_env(EnvConfig(image_h=H, image_w=W), RL_ENVS, seed=seed)
+    return DDPPOTrainer(model=PointNavActorCritic(image_size=(H, W)), ppo_cfg=cfg, envs=envs,
+                        device=dev, init_generator=g,
+                        generator=torch.Generator(device=dev).manual_seed(seed),
+                        vo_ensemble=vo)
+
+
+def _storage_bytes(rollouts):
+    tensors = list(rollouts.observations.values()) + [
+        getattr(rollouts, f) for f in ("hidden_states", "rewards", "value_preds", "returns",
+                                       "action_log_probs", "actions", "prev_actions", "masks")]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _full_minibatch(rollouts, model):
+    """All envs of a rollout with their advantages: one ppo_loss minibatch."""
+    import torch
+
+    from pointnav_vo_tpu_torch.rl.ppo import gather_env_slice
+
+    idx = torch.arange(rollouts.num_envs, device=rollouts.masks.device)
+    adv = rollouts.returns[:-1] - rollouts.value_preds[:-1]
+    return gather_env_slice(rollouts, idx, model.observation_keys) + (adv[:, idx],)
+
+
+def _with_returns(trainer):
+    """The trainer's rollout with its GAE returns, as update_agent takes it."""
+    from pointnav_vo_tpu_torch.rl.trainer import act_step
+
+    next_value = act_step(trainer.model, trainer._last_obs, trainer.hidden,
+                          trainer.prev_actions, trainer.masks)[0]
+    cfg = trainer.cfg
+    return trainer.rollouts.compute_returns(next_value, cfg.use_gae, cfg.gamma, cfg.tau)
+
+
+def _rl_step_vs_cpu(dev, trainer):
+    """One rollout step's pieces on the card and the CPU from the same
+    inputs (step 0 -> 1 of the trainer's stored rollout): the mode action
+    of the policy, the det VO delta of the cached step and the
+    dead-reckoned goal.  Actions equal, the rest within rtol 1e-3 / atol
+    1e-4."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops.geometry import pointgoal_polar2cartesian
+    from pointnav_vo_tpu_torch.rl.trainer import act_step, propagate_goal
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, frame_features_packed
+
+    r = trainer.rollouts
+    cpu = torch.device("cpu")
+    actions_np = r.actions[0, :, 0].cpu().numpy()
+    runs = {}
+    for name, device, model, vo in (
+            ("card", dev, trainer.model, trainer.vo),
+            ("cpu", cpu, copy.deepcopy(trainer.model).to(cpu),
+             VOEnsemble(trainer.vo.cfg, experts=[copy.deepcopy(m).to(cpu)
+                                                 for m in trainer.vo.experts], device=cpu))):
+        obs0 = {k: v[0].to(device) for k, v in r.observations.items()}
+        obs1 = {k: v[1].to(device) for k, v in r.observations.items()}
+        value, action, logp, hidden = act_step(model, obs0, r.hidden_states[0].to(device),
+                                               r.prev_actions[0].to(device),
+                                               r.masks[0].to(device))
+        feats = frame_features_packed(obs0["rgb"], obs0["depth"], vo.cfg)
+        delta, _ = vo.predict_step_cached(feats, obs1["rgb"], obs1["depth"], actions_np)
+        goal, polar = propagate_goal(pointgoal_polar2cartesian(obs0["pointgoal_with_gps_compass"]),
+                                     delta, 1.0 - r.masks[1].to(device),
+                                     obs1["pointgoal_with_gps_compass"])
+        runs[name] = {"value": value, "action": action, "logp": logp, "hidden": hidden,
+                      "delta": delta, "goal_cart": goal, "polar": polar}
+    errs = {}
+    for k, w in runs["cpu"].items():
+        g = runs["card"][k].cpu()
+        errs[k] = float((g.double() - w.double()).abs().max())
+        if k == "action":
+            if not torch.equal(g, w):
+                raise AssertionError("card and CPU rollout actions differ")
+        elif not torch.allclose(g, w, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"card vs CPU rollout step {k}: max abs err {errs[k]}")
+    _log("rl", "card vs CPU rollout step (rtol 1e-3, atol 1e-4; actions equal): "
+               + json.dumps(errs, sort_keys=True))
+    return errs
+
+
+def _rl_grad_vs_cpu(dev, trainer):
+    """``ppo_loss`` and its gradients on the trainer's whole rollout (one
+    minibatch of every env) on the card, on the CPU in float32 and on the
+    CPU in float64 as the reference.  Loss: card vs CPU rtol 1e-4.  Each
+    gradient's relative L2 error, card vs CPU, at most 5e-2, both devices'
+    distance from float64 printed beside it (the gate of phase 6)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.rl.ppo import ppo_loss
+
+    rollouts = _with_returns(trainer)
+    cfg = trainer.cfg
+    runs = {}
+    for name, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("cpu64", torch.device("cpu"), torch.float64)):
+        model = copy.deepcopy(trainer.model).to(device=device, dtype=dtype).train()
+        model.zero_grad(set_to_none=True)
+        total, _ = ppo_loss(model, cfg, _full_minibatch(rollouts.to(device, dtype), model),
+                            cfg.clip_param)
+        total.backward()
+        runs[name] = (float(total.detach()), {k: p.grad for k, p in model.named_parameters()})
+    (loss_card, card), (loss_cpu, cpu), (loss_64, cpu64) = runs.values()
+    if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
+        raise AssertionError(f"rl: card ppo_loss {loss_card} vs CPU {loss_cpu}")
+
+    def errs(a, b):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        return (float((a - b).norm() / b.norm().clamp(min=1e-30)),
+                float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+
+    worst = {"card_vs_cpu": [0.0, 0.0], "card_vs_fp64": [0.0, 0.0], "cpu_vs_fp64": [0.0, 0.0]}
+    for name in card:
+        for key, (a, b) in (("card_vs_cpu", (card[name], cpu[name])),
+                            ("card_vs_fp64", (card[name], cpu64[name])),
+                            ("cpu_vs_fp64", (cpu[name], cpu64[name]))):
+            e = errs(a, b)
+            worst[key] = [max(w, x) for w, x in zip(worst[key], e)]
+            if key == "card_vs_cpu" and e[0] > 5e-2:
+                raise AssertionError(f"rl: gradient of {name}: relative L2 error {e[0]} "
+                                     "card vs CPU")
+    _log("rl", f"card vs CPU ppo_loss gradient, T={rollouts.num_steps} N={rollouts.num_envs}: "
+               f"loss {loss_card:.8f} (CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst "
+               "gradient error over tensors [relative L2, max abs / max abs]: "
+               + json.dumps(worst))
+    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}
+
+
+def phase_train_rl(dev, card):
+    """Policy training with VO in the loop at full width."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.ppo import make_optimizer, ppo_loss, ppo_update
+
+    trainer = _rl_trainer(dev, RL_STEPS, SEED + 20)
+    storage_gib = _storage_bytes(trainer.rollouts) / 2**30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    history = trainer.train(RL_UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    expected = RL_UPDATES * RL_STEPS + 1
+    if launches != expected:
+        raise AssertionError(f"rl: bin_counts launched {launches} times over {RL_UPDATES} "
+                             f"updates of {RL_STEPS} steps; expected {expected}")
+    bad = [h for h in history if not all(np.isfinite(v) for v in h.values())]
+    if bad or trainer.count_steps != RL_UPDATES * RL_STEPS * RL_ENVS:
+        raise AssertionError(f"rl: train gave {history}, {trainer.count_steps} env steps")
+    timing = dict(trainer.timing)
+    fps = trainer.count_steps / sum(timing.values())
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    _log("rl", f"train({RL_UPDATES}) over {RL_ENVS} envs, {RL_STEPS} steps a rollout: "
+               f"wall {wall:.3f} s, {trainer.count_steps} env steps, {fps:.2f} env-steps/s "
+               f"(count_steps / sum(timing)), timing {json.dumps(timing)}, bin_counts "
+               f"launches {launches}, peak {peak:.2f} GiB (rollout storage {storage_gib:.3f} "
+               f"GiB) on {card}; " + json.dumps(history))
+
+    # steady state: one more rollout and update, each timed to its end
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.collect_rollout()
+    torch.cuda.synchronize()
+    rollout_step_ms = (time.perf_counter() - t0) * 1e3 / RL_STEPS
+    t0 = time.perf_counter()
+    trainer.update_agent()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    _log("rl", f"rollout step {rollout_step_ms:.3f} ms (host clock over {RL_STEPS} steps, "
+               f"env step and upload included), update_agent {update_ms:.3f} ms "
+               f"({RL_STEPS * RL_ENVS} frames in {trainer.cfg.num_mini_batch} minibatches)")
+
+    # the loss of one fixed rollout over successive updates on it
+    trainer.collect_rollout()
+    rollouts = _with_returns(trainer)
+    model = copy.deepcopy(trainer.model).to(dev)  # .to: cuDNN's flat LSTM weights
+    opt = make_optimizer(model.parameters(), trainer.cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(ppo_loss(model, trainer.cfg, _full_minibatch(rollouts, model),
+                                  trainer.cfg.clip_param)[0])
+
+    losses = [fixed_loss()]
+    for _ in range(RL_FIXED_UPDATES):
+        ppo_update(model, trainer.cfg, opt, rollouts, generator=gen)
+        losses.append(fixed_loss())
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"rl: the fixed rollout's loss did not fall: {losses}")
+    _log("rl", f"fixed rollout, loss before and after each of {RL_FIXED_UPDATES} updates: "
+               + " ".join(f"{x:.6f}" for x in losses))
+
+    # card vs CPU on a short rollout, then the per-step profile on it
+    short = _rl_trainer(dev, RL_PARITY_STEPS, SEED + 21)
+    short.collect_rollout()
+    step_errs = _rl_step_vs_cpu(dev, short)
+    grad = _rl_grad_vs_cpu(dev, short)
+    prof_rollout = _profile(f"collect_rollout of {RL_PARITY_STEPS} steps at {RL_ENVS} envs",
+                            short.collect_rollout, iters=1)
+    prof_update = _profile(f"update_agent, {RL_STEPS} steps x {RL_ENVS} envs",
+                           trainer.update_agent, iters=1)
+    per_step = ({"busy_ms": prof_rollout["busy_ms"] / RL_PARITY_STEPS,
+                 "wall_ms": prof_rollout["wall_ms"] / RL_PARITY_STEPS,
+                 "idle": prof_rollout["idle"],
+                 "launches": prof_rollout["launches"] / RL_PARITY_STEPS}
+                if prof_rollout else None)
+    return {"updates": RL_UPDATES, "steps": RL_STEPS, "envs": RL_ENVS, "launches": launches,
+            "expected_launches": expected, "history": history, "timing": timing,
+            "env_steps_per_s": fps, "wall_s": wall, "rollout_step_ms": rollout_step_ms,
+            "update_ms": update_ms, "peak_gib": peak, "storage_gib": storage_gib,
+            "fixed_rollout_losses": losses, "step_vs_cpu": step_errs, "grad_vs_cpu": grad,
+            "profile_rollout_step": per_step, "profile_update": prof_update}
+
+
 def main() -> int:
     import torch
 
@@ -831,9 +1092,10 @@ def main() -> int:
     rnd_launches, _rnd_ms = phase_rnd_eval(dev)
     phase_steady_vo(dev, card)
     train = phase_train(dev, card)
+    rl = phase_train_rl(dev, card)
     by_path = {"det_eval": launches["bin_counts"], "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
-               "train_joint": train["joint"]["launches"]}
+               "train_joint": train["joint"]["launches"], "train_rl": rl["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -855,6 +1117,7 @@ def main() -> int:
                     for b, t in timings.items()},
         "turns": {str(b): t["turns"] for b, t in timings.items()},
         "train": train,
+        "train_rl": rl,
     }]}
     print(json.dumps(record))
     print(card)

@@ -1,6 +1,6 @@
 """Carry weights across: flax variable trees (nested dicts of numpy arrays)
 -> state dicts of the port's modules, with the reference's key names, and
-back for the VO expert.
+back for the VO expert and the policy.
 
 The port's own copy of the key mapping of ``io/torch_export.py``: conv
 HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
@@ -8,9 +8,10 @@ HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
 the LSTM matrices are stored in torch's layout already and pass through.
 
 :func:`vo_state_dicts_from_stacked` reads the JAX training engine's stacked
-expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`
-and :func:`stacked_vo_variables` go the other way.  A gradient tree has
-the parameters' structure, so ``{name: p.grad}`` maps back the same way.
+expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`,
+:func:`stacked_vo_variables` and :func:`policy_variables_from_state_dict`
+go the other way.  A gradient tree has the parameters' structure, so
+``{name: p.grad}`` maps back the same way.
 """
 
 from __future__ import annotations
@@ -142,23 +143,38 @@ def _backbone_path(key: str) -> Tuple[Tuple[str, ...], str]:
     raise KeyError(f"unrecognized backbone key: {key}")
 
 
+def _encoder_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """Inverse of :func:`_encoder_entry`: torch key under ``visual_encoder.``
+    -> (flax path under ``visual_encoder``, kind)."""
+    leaf = key.rsplit(".", 1)[-1]
+    if key.startswith("backbone."):
+        path, kind = _backbone_path(key[len("backbone."):])
+        return ("backbone",) + path, kind
+    if key == "compression.0.weight":
+        return ("compression_conv", "kernel"), "conv"
+    if key.startswith("compression.1."):
+        return ("compression_gn", "scale" if leaf == "weight" else "bias"), "plain"
+    raise KeyError(f"unrecognized visual_encoder key: {key}")
+
+
+def _dense_path(name: str, leaf: str) -> Tuple[Tuple[str, ...], str]:
+    """A linear layer's ``weight``/``bias`` -> flax ``kernel``/``bias``."""
+    if leaf == "weight":
+        return (name, "kernel"), "dense"
+    return (name, "bias"), "plain"
+
+
 def _vo_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
     """Torch parameter key of :class:`models.vo_cnn.VOCNN` -> (flax path
     under ``params``, kind)."""
     leaf = key.rsplit(".", 1)[-1]
-    dense_leaf = "kernel" if leaf == "weight" else "bias"
-    if key.startswith("visual_encoder.backbone."):
-        path, kind = _backbone_path(key[len("visual_encoder.backbone."):])
-        return ("visual_encoder", "backbone") + path, kind
-    if key == "visual_encoder.compression.0.weight":
-        return ("visual_encoder", "compression_conv", "kernel"), "conv"
-    if key.startswith("visual_encoder.compression.1."):
-        return ("visual_encoder", "compression_gn",
-                "scale" if leaf == "weight" else "bias"), "plain"
+    if key.startswith("visual_encoder."):
+        path, kind = _encoder_path(key[len("visual_encoder."):])
+        return ("visual_encoder",) + path, kind
     if key.startswith("visual_fc.2."):
-        return ("visual_fc", dense_leaf), "dense" if leaf == "weight" else "plain"
+        return _dense_path("visual_fc", leaf)
     if key.startswith("output_head.1."):
-        return ("output_head", dense_leaf), "dense" if leaf == "weight" else "plain"
+        return _dense_path("output_head", leaf)
     raise KeyError(f"unrecognized VO key: {key}")
 
 
@@ -234,6 +250,40 @@ def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
             raise KeyError(f"unrecognized policy param: {'.'.join(path)}")
         sd[key] = val
     return _to_torch(sd)
+
+
+# torch module prefix of each dense layer of the policy -> flax name
+_POLICY_DENSE = {"net.tgt_embeding.": "tgt_embeding", "net.visual_fc.1.": "visual_fc",
+                 "action_distribution.linear.": "action_head", "critic.fc.": "critic"}
+
+
+def _policy_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
+    """Torch parameter key of :class:`models.policy.PointNavActorCritic` ->
+    (flax path under ``params``, kind)."""
+    leaf = key.rsplit(".", 1)[-1]
+    if key == "net.prev_action_embedding.weight":
+        return ("prev_action_embedding", "embedding"), "plain"
+    if key.startswith("net.visual_encoder."):
+        path, kind = _encoder_path(key[len("net.visual_encoder."):])
+        return ("visual_encoder",) + path, kind
+    if key.startswith("net.state_encoder.rnn."):  # rnn.weight_ih_l0 -> w_ih_l0
+        name = leaf.replace("weight_", "w_").replace("bias_", "b_")
+        return ("state_encoder", name), "plain"
+    for prefix, name in _POLICY_DENSE.items():
+        if key.startswith(prefix):
+            return _dense_path(name, leaf)
+    raise KeyError(f"unrecognized policy key: {key}")
+
+
+def policy_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """State dict (or ``{name: grad}``) of
+    :class:`models.policy.PointNavActorCritic` -> flax ``{"params": ...}``
+    of numpy arrays: the inverse of :func:`policy_state_dict_from_jax`."""
+    out: Dict[str, Dict] = {"params": {}}
+    for key, v in sd.items():
+        path, kind = _policy_param_path(key)
+        _set(out["params"], path, _KIND_INV[kind](v.detach().cpu().numpy().astype(np.float32)))
+    return out
 
 
 def split_expert_variables(stacked: Mapping[str, Any], n_experts: int = 3) -> List[Dict]:

@@ -9,7 +9,10 @@ prefix): ``net.visual_encoder``, ``net.visual_fc.1``, ``net.tgt_embeding``,
 ``net.prev_action_embedding``, ``net.state_encoder.rnn``,
 ``action_distribution.linear`` and ``critic.fc``.  Depth input only (the
 deployed policy's; rgb policies, which also whiten their input, are not
-ported yet), single step (the sequence form belongs to training).
+ported yet).  One step takes ``[N, ...]`` inputs; the PPO update's sequence
+form takes ``[T, N, ...]``, runs the encoder on all ``T*N`` frames at once
+and the LSTM over time.  The modules follow their parameters' dtype
+(float32, or float64 for a reference run).
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ class PolicyResNetEncoder(nn.Module):
 
     def forward(self, depth: torch.Tensor) -> torch.Tensor:
         """depth ``[N, H, W, 1]`` -> ``[N, C, fh, fw]``."""
-        x = F.avg_pool2d(depth.float().permute(0, 3, 1, 2), 2)
-        return self.compression(self.backbone(x))
+        x = depth.to(self.compression[0].weight.dtype).permute(0, 3, 1, 2)
+        return self.compression(self.backbone(F.avg_pool2d(x, 2)))
 
 
 class _Net(nn.Module):
@@ -81,7 +84,11 @@ class _CriticHead(nn.Module):
 
 
 class PointNavActorCritic(nn.Module):
-    """Returns (logits ``[N, 4]``, value ``[N, 1]``, hidden')."""
+    """Returns (logits ``[B, 4]``, value ``[B, 1]``, hidden'), B = N for one
+    step and T*N for a sequence."""
+
+    # the observations the forward reads
+    observation_keys = ("depth", "pointgoal_with_gps_compass")
 
     def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
                  baseplanes: int = 32):
@@ -103,17 +110,29 @@ class PointNavActorCritic(nn.Module):
                 prev_actions: torch.Tensor, masks: torch.Tensor):
         """observations: ``depth`` ``[N, H, W, 1]`` and
         ``pointgoal_with_gps_compass`` ``[N, 2]``; hidden ``[2L, N, H]``;
-        prev_actions ``[N, 1]`` int; masks ``[N, 1]`` float."""
+        prev_actions ``[N, 1]`` int; masks ``[N, 1]`` float.  Or a sequence:
+        each with a leading time axis, ``[T, N, ...]``."""
         net = self.net
+        seq = prev_actions.dim() == 3
+        if seq:
+            t, n = prev_actions.shape[:2]
+            observations = {k: observations[k].reshape((t * n,) + observations[k].shape[2:])
+                            for k in self.observation_keys}
+            prev_actions, masks = prev_actions.reshape(t * n, 1), masks.reshape(t * n, 1)
         vis = net.visual_fc(net.visual_encoder(observations["depth"]))
-        goal = observations["pointgoal_with_gps_compass"].float()
+        goal = observations["pointgoal_with_gps_compass"].to(vis.dtype)
         goal3 = torch.stack([goal[:, 0], torch.cos(-goal[:, 1]),
                              torch.sin(-goal[:, 1])], dim=-1)
         # +1 shift so action "none" (episode start, masked to 0) has its own row
-        prev_idx = ((prev_actions.float() + 1.0) * masks).long()
+        prev_idx = ((prev_actions.float() + 1.0) * masks.float()).long()
         x = torch.cat([vis, net.tgt_embeding(goal3),
                        net.prev_action_embedding(prev_idx[:, 0])], dim=-1)
-        x, hidden = net.state_encoder(x, hidden, masks)
+        if seq:
+            x, hidden = net.state_encoder(x.reshape(t, n, -1), hidden.to(x.dtype),
+                                          masks.reshape(t, n, 1).to(x.dtype))
+            x = x.reshape(t * n, -1)
+        else:
+            x, hidden = net.state_encoder(x, hidden.to(x.dtype), masks.to(x.dtype))
         logits = self.action_distribution.linear(x)
         value = self.critic.fc(x)
         return logits, value, hidden

@@ -111,13 +111,15 @@ class VOCNN(nn.Module):
     def trunk(self, feats: torch.Tensor, masks: Optional[DropoutMasks] = None) -> torch.Tensor:
         """Flat features ``[n, flat]`` -> delta ``[..., n, 3]``.  ``masks``
         (keep masks ``[..., n, flat]`` and ``[..., n, hidden]``) switch the
-        dropout on; a leading pass axis runs several passes at once."""
+        dropout on; a leading pass axis ``[k, n, ...]`` runs the k passes as
+        one batched product, each pass computed alike, so equal masks give
+        equal passes."""
         fc, head = self.visual_fc[2], self.output_head[1]
         if masks is None:
             return head(torch.relu(fc(feats)))
         keep = 1.0 - self.dropout_p
-        x = torch.relu(fc(feats * (masks[0].float() / keep)))
-        return head(x * (masks[1].float() / keep))
+        x = torch.relu(_linear(fc, feats * (masks[0].float() / keep)))
+        return _linear(head, x * (masks[1].float() / keep))
 
     def forward(self, packed: torch.Tensor, update_stats: bool = False,
                 stats_mask: Optional[torch.Tensor] = None,
@@ -130,6 +132,16 @@ class VOCNN(nn.Module):
             masks = draw_dropout_masks(generator, (feats.shape[0],), self.flat_size,
                                        self.hidden_size, self.dropout_p)
         return self.trunk(feats, masks)
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``; for ``[k, n, d]`` input a batched product over k (a
+    plain ``layer`` folds k into the rows of one GEMM, whose rows may round
+    apart)."""
+    if x.dim() == 2:
+        return layer(x)
+    k, n = x.shape[:2]
+    return torch.baddbmm(layer.bias.expand(k, n, -1), x, layer.weight.t().expand(k, -1, -1))
 
 
 def draw_dropout_masks(generator: torch.Generator, lead: Tuple[int, ...], flat: int,

@@ -1,12 +1,37 @@
-"""Policy act step and VO goal propagation (counterpart of the inference
-pieces of ``rl/trainer.py``; PPO training is not ported yet)."""
+"""DD-PPO trainer with VO in the loop, one process (counterpart of
+``rl/trainer.py``): the policy act step, VO goal propagation and
+:class:`DDPPOTrainer`.
+
+A rollout step acts for all envs at once on the device (the action drawn
+from the trainer's device generator), reads the actions back once to step
+the envs on the host, and, with VO in the loop (the reference's
+``TUNE_WITH_VO``), dead-reckons the goal the policy sees through the VO
+ensemble instead of reading the GPS sensor: each new frame's features are
+computed once and paired with the previous frame's, which the last step
+left in a cache, so a det step runs ``bin_counts`` once.  Episode resets
+re-seed the goal from the new episode's sensor.  An update computes the
+returns and runs :func:`rl.ppo.ppo_update`.  Across processes
+(``torch.distributed``) is not ported yet.
+"""
 
 from __future__ import annotations
 
+import time
+from collections import deque
+from typing import Dict, Mapping, Optional
+
+import numpy as np
 import torch
 
+from pointnav_vo_tpu_torch.common import resolve_device
+from pointnav_vo_tpu_torch.io.weights import seeded_init_
 from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
 from pointnav_vo_tpu_torch.ops import geometry as geo
+from pointnav_vo_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update
+from pointnav_vo_tpu_torch.rl.rollout import RolloutStorage
+from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
+
+GOAL_KEY = "pointgoal_with_gps_compass"
 
 
 @torch.no_grad()
@@ -26,3 +51,165 @@ def propagate_goal(goal_cart, delta, reset_mask, sensor_polar):
     new_cart = torch.where(reset_mask > 0, seeded, prop["cartesian"])
     rho, phi = geo.cartesian_to_polar(-new_cart[..., 2], new_cart[..., 0])
     return new_cart, torch.stack([rho, -phi], dim=-1)
+
+
+class DDPPOTrainer:
+    """PPO over a VectorEnv with optional VO in the loop.
+
+    ``state_dict`` loads the policy's weights; without it they are drawn
+    from ``init_generator`` (a CPU generator, by ``io.weights.seeded_init_``).
+    ``generator`` (on the device; seeded 0 where not given) draws the
+    actions, the minibatch order and rnd-mode VO dropout.  ``vo_ensemble``
+    (det or rnd) or ``vo_fn(prev_obs, new_obs, actions_np, infos) -> delta
+    [N, 3]`` puts VO in the loop.  ``device=None`` means the card.
+    """
+
+    def __init__(self, *, model, ppo_cfg: PPOConfig, envs, device=None,
+                 state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+                 init_generator: Optional[torch.Generator] = None,
+                 generator: Optional[torch.Generator] = None, vo_ensemble=None,
+                 vo_fn=None, total_updates: Optional[int] = None):
+        self.device = resolve_device(device)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        else:
+            seeded_init_(model, init_generator or torch.Generator().manual_seed(0))
+        # training mode throughout: the policy has no layer that acts
+        # differently in it, and cuDNN's LSTM backward needs it
+        self.model = model.to(self.device).train()
+        self.cfg = ppo_cfg
+        self.envs = envs
+        self.vo = vo_ensemble
+        self.vo_fn = vo_fn
+        if self.vo is not None and self.vo.device != self.device:
+            raise ValueError(f"VO ensemble on {self.vo.device}, trainer on {self.device}")
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, trainer on {self.device}")
+        self.generator = generator
+        self.total_updates = total_updates
+
+        self._last_obs = self._to_device(envs.reset())
+        n = envs.num_envs
+        if self.vo is not None or self.vo_fn is not None:
+            # the policy's goal is dead-reckoned from here on, never the sensor
+            self.goal_cart = geo.pointgoal_polar2cartesian(self._last_obs[GOAL_KEY])
+        self._vo_feats = None  # the previous frame's VO features
+
+        self.optimizer = make_optimizer(self.model.parameters(), ppo_cfg, total_updates)
+        self.hidden = self.model.initial_hidden(n, device=self.device)
+        self.prev_actions = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
+        self.masks = torch.zeros((n, 1), device=self.device)
+
+        self.rollouts = RolloutStorage.create(
+            ppo_cfg.num_steps, n, {k: tuple(v.shape[1:]) for k, v in self._last_obs.items()},
+            self.model.num_packed_hidden, ppo_cfg.hidden_size, device=self.device)
+        for k, v in self._last_obs.items():
+            self.rollouts.observations[k][0].copy_(v)
+
+        self.reward_window = deque(maxlen=ppo_cfg.reward_window_size)
+        self.episode_reward = np.zeros(n)
+        self.count_steps = 0
+        self.update_idx = 0
+        self.timing = {"env": 0.0, "act": 0.0, "vo": 0.0, "update": 0.0}
+
+    def _to_device(self, obs: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in obs.items()}
+
+    # -- rollout collection ----------------------------------------------------
+
+    def _vo_update_goal(self, prev_obs, new_obs_np, new_obs, actions_np, reset, infos):
+        """The VO-propagated goal in polar form ``[N, 2]`` after one step;
+        ``reset`` ``[N, 1]`` is 1 where an episode just began."""
+        t0 = time.perf_counter()
+        if self.vo_fn is not None:
+            delta = torch.as_tensor(self.vo_fn(prev_obs, new_obs_np, actions_np, infos),
+                                    dtype=torch.float32, device=self.device)
+        else:
+            if self._vo_feats is None:  # the first frame's, once
+                self._vo_feats = frame_features_packed(prev_obs["rgb"], prev_obs["depth"],
+                                                       self.vo.cfg)
+            if self.vo.cfg.mode == "det":
+                delta, self._vo_feats = self.vo.predict_step_cached(
+                    self._vo_feats, new_obs["rgb"], new_obs["depth"], actions_np)
+            else:
+                cur = frame_features_packed(new_obs["rgb"], new_obs["depth"], self.vo.cfg)
+                delta, _std = self.vo.predict_rnd_packed(
+                    torch.cat([self._vo_feats, cur], dim=-1), actions_np, self.generator)
+                self._vo_feats = cur
+        self.goal_cart, polar = propagate_goal(self.goal_cart, delta, reset, new_obs[GOAL_KEY])
+        self.timing["vo"] += time.perf_counter() - t0
+        return polar
+
+    def collect_rollout(self) -> None:
+        """``num_steps`` steps of every env into the rollout storage."""
+        rollouts = self.rollouts
+        for step in range(self.cfg.num_steps):
+            t0 = time.perf_counter()
+            value, action, logp, new_hidden = act_step(
+                self.model, self._last_obs, self.hidden, self.prev_actions, self.masks,
+                self.generator)
+            actions_np = action[:, 0].cpu().numpy()  # the step's one read-back
+            self.timing["act"] += time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            obs, rewards, dones, infos = self.envs.step(actions_np)
+            self.timing["env"] += time.perf_counter() - t0
+
+            self.episode_reward += rewards
+            for i, d in enumerate(dones):
+                if d:
+                    self.reward_window.append(self.episode_reward[i])
+                    self.episode_reward[i] = 0.0
+
+            # every upload before the VO work is queued: a copy from pageable
+            # host memory waits for the work queued ahead of it
+            new_obs = self._to_device(obs)
+            masks = torch.from_numpy(1.0 - dones.astype(np.float32))[:, None].to(self.device)
+            rewards_t = torch.from_numpy(np.asarray(rewards, np.float32))[:, None].to(self.device)
+            if self.vo is not None or self.vo_fn is not None:
+                new_obs[GOAL_KEY] = self._vo_update_goal(self._last_obs, obs, new_obs,
+                                                         actions_np, 1.0 - masks, infos)
+            rollouts.insert_step(step, new_obs, new_hidden, action, logp, value, rewards_t,
+                                 masks)
+            self._last_obs = new_obs
+            self.hidden = new_hidden
+            self.prev_actions = action
+            self.masks = masks
+            self.count_steps += len(dones)
+
+    def update_agent(self, order: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        """Returns, one PPO update (in ``order``, see ``ppo_update``, or an
+        order drawn from the generator) and the roll to the next rollout."""
+        t0 = time.perf_counter()
+        next_value, _, _, _ = act_step(self.model, self._last_obs, self.hidden,
+                                       self.prev_actions, self.masks)
+        self.rollouts.compute_returns(next_value, self.cfg.use_gae, self.cfg.gamma,
+                                      self.cfg.tau)
+        clip = self.cfg.clip_param
+        if self.cfg.use_linear_clip_decay and self.total_updates:
+            clip = clip * max(0.0, 1.0 - self.update_idx / self.total_updates)
+        stats = ppo_update(self.model, self.cfg, self.optimizer, self.rollouts, order=order,
+                           generator=self.generator, clip_param=clip)
+        stats = {k: float(v) for k, v in stats.items()}
+        self.rollouts.after_update()
+        self.timing["update"] += time.perf_counter() - t0
+        self.update_idx += 1
+        return stats
+
+    def train(self, num_updates: int, log_fn=None):
+        """``num_updates`` rounds of rollout and update; returns each
+        update's stats with the mean episode reward of the window and the
+        env steps so far."""
+        history = []
+        for _ in range(num_updates):
+            self.collect_rollout()
+            stats = self.update_agent()
+            stats["mean_episode_reward"] = (
+                float(np.mean(self.reward_window)) if self.reward_window else 0.0)
+            stats["count_steps"] = self.count_steps
+            history.append(stats)
+            if log_fn:
+                log_fn(self.update_idx, stats, dict(self.timing))
+        return history

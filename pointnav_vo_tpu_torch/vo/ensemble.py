@@ -178,6 +178,15 @@ def expert_rows(actions_np) -> list:
     return [np.nonzero(expert_idx == e)[0] for e in range(len(VO_EXPERT_ACTIONS))]
 
 
+def pass_mean_std(samples: torch.Tensor):
+    """Mean and population std over the pass axis of ``[k, ...]``, both
+    taken about the first pass: equal passes give that pass and a std of
+    exactly 0 (a plain mean of k equal floats may round off the value)."""
+    first = samples[0]
+    mean = first + (samples - first).mean(0)
+    return mean, (samples - mean).square().mean(0).sqrt()
+
+
 class VOEnsemble:
     """Three VO experts with an own-expert forward, det or rnd."""
 
@@ -240,7 +249,7 @@ class VOEnsemble:
             feats = expert.visual_encoder(obs_pairs.index_select(0, idx)).flatten(1)
             own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
             samples.index_copy_(1, idx, expert.trunk(feats, own).float())
-        return samples.mean(0), samples.std(0, correction=0)
+        return pass_mean_std(samples)
 
     @torch.no_grad()
     def predict_step_cached(self, prev_feats: torch.Tensor, cur_rgb: torch.Tensor,

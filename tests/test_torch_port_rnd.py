@@ -107,7 +107,7 @@ def test_pair_assembly_matches_jax(twins):
 
 def test_rnd_at_dropout_zero_matches_jax():
     """Dropout 0: every pass is the det forward; JAX's rnd _predict mean
-    equals the port's and both stds are 0 (the port's up to rounding)."""
+    equals the port's and both stds are exactly 0."""
     jens, tens = _ensembles(dropout_p=0.0)
     pr, pd, cr, cd = _frames(ACTIONS.size, seed=2)
     obs = jens_lib.preprocess_obs_pairs(*(jnp.asarray(a) for a in (pr, pd, cr, cd)), jens.cfg)
@@ -117,8 +117,8 @@ def test_rnd_at_dropout_zero_matches_jax():
     mean, std = tens.predict_rnd_packed(tobs, ACTIONS, torch.Generator().manual_seed(0))
     np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=RTOL, atol=ATOL)
     assert float(np.abs(np.asarray(jstd)).max()) == 0.0
-    # the passes go through one batched matmul, whose rows may round apart
-    assert float(std.abs().max()) < 1e-6
+    # the passes are one batched product, each pass computed alike
+    assert float(std.abs().max()) == 0.0
     np.testing.assert_allclose(mean.numpy(), tens.predict_packed(tobs, ACTIONS).numpy(),
                                rtol=1e-6, atol=1e-7)
 
@@ -258,8 +258,7 @@ def test_evaluator_rnd_at_dropout_zero_equals_det():
     rnd, rnd_results = _run_evaluator("rnd", 0.0)
     det, det_results = _run_evaluator("det", 0.0)
     assert det["vo_pred_std_mean"] == 0.0
-    # the passes agree up to the rounding of the batched trunk's matmul
-    assert rnd["vo_pred_std_mean"] < 1e-6
+    assert rnd["vo_pred_std_mean"] == 0.0
     for key in ("episodes", "success", "spl", "total_env_steps", "stuck_dx"):
         assert rnd[key] == det[key], key
     for key in ("vo_l2_mean", "global_drift_mean", "distance_to_goal"):
