@@ -55,7 +55,24 @@ Phases, each printing a line; any failure exits non-zero:
    launches per step and per update (torch.profiler), peak memory; the
    loss of one fixed rollout must fall over 4 updates on it; one rollout
    step (mode action, VO delta, goal) and one ``ppo_loss`` gradient on a
-   16-step rollout held against the CPU (gradients beside a float64 step).
+   16-step rollout held against the CPU (gradients beside a float64 step);
+8. the CLI (``python -m pointnav_vo_tpu_torch.run``, called as
+   ``run.main``) on ``configs/rl/ddppo_pointnav.yaml`` at full width in a
+   temporary log root, seeded experts (``VO.REGRESS_MODEL.pretrained
+   False``), a checkpoint every update: train 2 updates (exactly 2 x 128 + 1
+   launches, two checkpoints); eval the checkpoint folder as a sweep (2
+   episodes each under a 20-step cap, exactly steps + 1 launches per
+   checkpoint); resume from the last checkpoint to update 3 (it restarts
+   at the stored update with ``count_steps`` restored); a run with the
+   preemption flag set (the interrupted state at update 0, then return).
+   Wall time of each run, env-steps/s, checkpoint bytes, sync and async
+   save times, the eval metrics;
+9. the deployment agent: one episode of ``PointNavVOAgent`` (det, seeded
+   weights, STOP logit lowered, 24-step cap) on a scripted env at full
+   width, every act held against the same agent on the CPU (actions equal,
+   goal within rtol 1e-3 / atol 1e-4), one launch an act after the first
+   and one more on the first VO step, the per-act time (host clock,
+   synchronized).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name/power line; the last line is the run's JSON verdict.
@@ -66,7 +83,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -88,6 +107,13 @@ RL_STEPS = 128  # RL.PPO.num_steps
 RL_UPDATES = 2
 RL_FIXED_UPDATES = 4
 RL_PARITY_STEPS = 16
+CLI_UPDATES = 2  # phase 8: NUM_UPDATES of the train run
+CLI_RESUME_UPDATES = 3
+CLI_EVAL_EPISODES = 2  # EVAL.TEST_EPISODE_COUNT per checkpoint
+CLI_EVAL_CAP = 20  # TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS of the eval sweep
+AGENT_CAP = 24  # phase 9: the episode's step cap
+RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "rl", "ddppo_pointnav.yaml")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 _FLUSH_KERNEL = "bitwise_not"  # the L2 flush's kernel, left out of device times
 SEED = 0
@@ -1074,6 +1100,222 @@ def phase_train_rl(dev, card):
             "profile_rollout_step": per_step, "profile_update": prof_update}
 
 
+def _cli(argv):
+    """One run of the port's CLI on the card, its wall time and its
+    bin_counts launches."""
+    import torch
+
+    from pointnav_vo_tpu_torch import run
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run.main(argv)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, tk.launch_counts["bin_counts"]
+
+
+def _save_times(trainer, root):
+    """Seconds to write the trainer's checkpoint state (device tensors,
+    copied to the host in the call): synchronously, and through the async
+    writer (the train loop's call, then until it is on disk)."""
+    from pointnav_vo_tpu_torch.io.checkpoint import AsyncCheckpointWriter, save_checkpoint
+
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(root, "sync.pth"), trainer.checkpoint_state())
+    sync_s = time.perf_counter() - t0
+    with AsyncCheckpointWriter() as w:
+        t0 = time.perf_counter()
+        w.save(os.path.join(root, "async.pth"), trainer.checkpoint_state())
+        call_s = time.perf_counter() - t0
+        w.wait()
+        async_s = time.perf_counter() - t0
+    return {"sync_s": sync_s, "async_call_s": call_s, "async_durable_s": async_s}
+
+
+def phase_cli(dev, card):
+    """The port's CLI on configs/rl/ddppo_pointnav.yaml at full width:
+    train with a checkpoint every update, sweep-eval the checkpoint folder,
+    resume from the last checkpoint, and a preempted run."""
+    import shutil
+    import tempfile
+
+    from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import VectorEnv
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator
+    from pointnav_vo_tpu_torch.utils import preemption
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    base = ["--task-type", "rl", "--exp-config", RL_CONFIG, "--log-root", root,
+            "--device", str(dev)]
+    # seeded experts: the published .pth files are not in the repo
+    opts = ["VO.REGRESS_MODEL.pretrained", "False", "CHECKPOINT_INTERVAL", "1",
+            "LOG_INTERVAL", "1"]
+    try:
+        # 1. train
+        trainer, wall, launches = _cli(["--run-type", "train", *base, *opts,
+                                        "NUM_UPDATES", str(CLI_UPDATES)])
+        expected = CLI_UPDATES * RL_STEPS + 1
+        ckpt_dir = os.path.join(glob.glob(os.path.join(root, "rl-train-*"))[0], "checkpoints")
+        ckpts = sorted(os.listdir(ckpt_dir))
+        if launches != expected or len(ckpts) != CLI_UPDATES:
+            raise AssertionError(f"cli train: {launches} bin_counts launches (expected "
+                                 f"{expected}), checkpoints {ckpts}")
+        steps = trainer.count_steps
+        train = {"wall_s": wall, "launches": launches, "env_steps": steps,
+                 "env_steps_per_s": steps / sum(trainer.timing.values()),
+                 "env_steps_per_wall_s": steps / wall, "checkpoints": ckpts,
+                 "checkpoint_bytes": os.path.getsize(os.path.join(ckpt_dir, ckpts[-1])),
+                 "save": _save_times(trainer, root)}
+        _log("cli", f"train {CLI_UPDATES} updates x {RL_STEPS} steps x {RL_ENVS} envs: wall "
+                    f"{wall:.3f} s (engine, envs and models built inside), "
+                    f"{train['env_steps_per_s']:.2f} env-steps/s (count_steps / sum(timing)), "
+                    f"{train['env_steps_per_wall_s']:.2f} by wall, bin_counts launches "
+                    f"{launches}; checkpoints {ckpts}, {train['checkpoint_bytes']} B each; "
+                    f"save {json.dumps(train['save'])} on {card}")
+
+        # 2. eval the folder as a sweep: per checkpoint, exactly steps + 1 launches
+        runs = []
+        real_run, real_step = Evaluator.run, VectorEnv.step
+        step_calls = [0]
+
+        def counted_step(self, actions):
+            step_calls[0] += 1
+            return real_step(self, actions)
+
+        def counted_run(self, num_episodes):
+            before, calls = tk.launch_counts["bin_counts"], step_calls[0]
+            out = real_run(self, num_episodes)
+            runs.append((tk.launch_counts["bin_counts"] - before, step_calls[0] - calls, out))
+            return out
+
+        Evaluator.run, VectorEnv.step = counted_run, counted_step
+        try:
+            results, wall, launches = _cli(
+                ["--run-type", "eval", *base, *opts, "EVAL.EVAL_CKPT_PATH", ckpt_dir,
+                 "EVAL.TEST_EPISODE_COUNT", str(CLI_EVAL_EPISODES),
+                 "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", str(CLI_EVAL_CAP)])
+        finally:
+            Evaluator.run, VectorEnv.step = real_run, real_step
+        if sorted(results) != ckpts or len(runs) != len(ckpts):
+            raise AssertionError(f"cli eval: evaluated {sorted(results)} of {ckpts}")
+        for n_launch, n_steps, metrics in runs:
+            if n_launch != n_steps + 1 or metrics["episodes"] != CLI_EVAL_EPISODES:
+                raise AssertionError(f"cli eval: {n_launch} launches over {n_steps} steps "
+                                     f"(expected steps + 1), {metrics['episodes']} episodes")
+            bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f"cli eval: non-finite metrics {bad}")
+        evaluation = {"wall_s": wall, "launches": launches,
+                      "steps": [r[1] for r in runs], "metrics": results}
+        _log("cli", f"eval sweep over {len(ckpts)} checkpoints, {CLI_EVAL_EPISODES} episodes "
+                    f"each, cap {CLI_EVAL_CAP} steps: wall {wall:.3f} s, loop steps "
+                    f"{evaluation['steps']}, bin_counts launches {launches}; "
+                    + json.dumps(results, sort_keys=True))
+
+        # 3. resume from the last checkpoint: restart at its stored update
+        last = os.path.join(ckpt_dir, ckpts[-1])
+        saved = load_checkpoint(last)
+        resumed, wall, launches = _cli(
+            ["--run-type", "train", *base, *opts, "NUM_UPDATES", str(CLI_RESUME_UPDATES),
+             "RESUME_TRAIN", "True", "RESUME_STATE_FILE", last])
+        runs_again = CLI_RESUME_UPDATES - saved["update"]
+        want_steps = saved["count_steps"] + runs_again * RL_STEPS * RL_ENVS
+        if (resumed.update_idx != CLI_RESUME_UPDATES or resumed.count_steps != want_steps
+                or launches != runs_again * RL_STEPS + 1):
+            raise AssertionError(f"cli resume: update {resumed.update_idx}, "
+                                 f"{resumed.count_steps} env steps (expected {want_steps}), "
+                                 f"{launches} launches")
+        resume = {"wall_s": wall, "launches": launches, "from_update": saved["update"],
+                  "count_steps": resumed.count_steps}
+        _log("cli", f"resume from {ckpts[-1]} (update {saved['update']}, {saved['count_steps']} "
+                    f"env steps) to update {CLI_RESUME_UPDATES}: wall {wall:.3f} s, "
+                    f"{resumed.count_steps} env steps, bin_counts launches {launches}")
+
+        # 4. preempted before its first update: the interrupted state, then return
+        preemption.INTERRUPTED_STATE_DIR = os.path.join(root, "interrupted")
+        preemption.EXIT.set()
+        try:
+            stopped, wall, launches = _cli(["--run-type", "train", *base, *opts,
+                                            "NUM_UPDATES", str(CLI_UPDATES)])
+        finally:
+            preemption.reset_for_tests()
+        state = load_checkpoint(preemption.interrupted_state_path())
+        if state["update"] != 0 or stopped.update_idx != 0 or launches != 0:
+            raise AssertionError(f"cli preemption: state at update {state['update']}, "
+                                 f"trainer at {stopped.update_idx}, {launches} launches")
+        _log("cli", f"preempted run: interrupted state at update 0 written, returned in "
+                    f"{wall:.3f} s")
+        return {"train": train, "eval": evaluation, "resume": resume,
+                "preempt_wall_s": wall}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_agent(dev, card):
+    """One full-width episode of PointNavVOAgent (det, seeded weights, the
+    STOP logit lowered so the episode runs to its cap) on a scripted env,
+    held step by step against the same agent on the CPU."""
+    import torch
+
+    from pointnav_vo_tpu_torch.deploy.challenge_agent import PointNavVOAgent
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED + 30)
+    for p in (policy, cpu_policy):
+        with torch.no_grad():
+            p.action_distribution.linear.bias.copy_(torch.tensor([-4.0, 0.0, 0.0, 0.0]))
+    goal = "pointgoal_with_gps_compass"
+    card_agent = PointNavVOAgent(policy_model=policy, vo_ensemble=vo, goal_sensor=goal,
+                                 device=dev)
+    cpu_agent = PointNavVOAgent(policy_model=cpu_policy, vo_ensemble=cpu_vo, goal_sensor=goal,
+                                device="cpu")
+    env = ScriptedPointNavEnv(EnvConfig(image_h=H, image_w=W, max_episode_steps=AGENT_CAP),
+                              seed=SEED + 30)
+    obs, done, info = env.reset(), False, {}
+    actions, act_ms, goal_err, launches = [], [], 0.0, 0
+    tk.reset_launch_counts()
+    while not done:
+        before = tk.launch_counts["bin_counts"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = card_agent.act(obs)["action"]
+        torch.cuda.synchronize()
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+        launches += tk.launch_counts["bin_counts"] - before  # the card agent's acts only
+        want = cpu_agent.act(obs)["action"]
+        if a != want:
+            raise AssertionError(f"agent step {len(actions)}: card action {a}, CPU {want}")
+        got_goal, want_goal = card_agent.goal_cartesian, cpu_agent.goal_cartesian
+        if not np.allclose(got_goal, want_goal, rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"agent step {len(actions)}: card goal {got_goal}, "
+                                 f"CPU {want_goal}")
+        goal_err = max(goal_err, float(np.abs(got_goal - want_goal).max()))
+        actions.append(a)
+        obs, _r, done, info = env.step(a)
+    n = len(actions)
+    if n < 3 or launches != n:
+        raise AssertionError(f"agent: {launches} bin_counts launches over {n} acts "
+                             "(expected one an act after the first, one more on the first "
+                             "VO step)")
+    steady = act_ms[2:]
+    out = {"acts": n, "launches": launches, "actions": actions,
+           "act_ms_mean": float(np.mean(steady)), "act_ms_median": float(np.median(steady)),
+           "first_act_ms": act_ms[:2], "goal_max_abs_err": goal_err,
+           "success": info.get("success"), "spl": info.get("spl")}
+    _log("agent", f"{n} acts at {W}x{H}: per act {out['act_ms_mean']:.3f} ms mean, "
+                  f"{out['act_ms_median']:.3f} ms median (host clock, synchronized, acts 3 on; "
+                  f"first two {act_ms[0]:.3f}, {act_ms[1]:.3f} ms), bin_counts launches "
+                  f"{launches}, actions equal to the CPU agent's, goal max abs err "
+                  f"{goal_err:.3g} (rtol 1e-3, atol 1e-4) on {card}; actions {actions}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1093,9 +1335,13 @@ def main() -> int:
     phase_steady_vo(dev, card)
     train = phase_train(dev, card)
     rl = phase_train_rl(dev, card)
+    cli = phase_cli(dev, card)
+    agent = phase_agent(dev, card)
     by_path = {"det_eval": launches["bin_counts"], "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
-               "train_joint": train["joint"]["launches"], "train_rl": rl["launches"]}
+               "train_joint": train["joint"]["launches"], "train_rl": rl["launches"],
+               "cli_train_rl": cli["train"]["launches"], "cli_eval": cli["eval"]["launches"],
+               "cli_resume": cli["resume"]["launches"], "agent": agent["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -1118,6 +1364,8 @@ def main() -> int:
         "turns": {str(b): t["turns"] for b, t in timings.items()},
         "train": train,
         "train_rl": rl,
+        "cli": cli,
+        "agent": agent,
     }]}
     print(json.dumps(record))
     print(card)

@@ -12,6 +12,11 @@ MOVE_FORWARD = 1
 TURN_LEFT = 2
 TURN_RIGHT = 3
 N_ACTS = 4
+UNIFIED = -1  # the VO expert trained on every action (action_type -1)
+
+# checkpoint names of the VO experts (config ``all_pretrained_ckpt``)
+ACT_NAME2IDX = {"forward": MOVE_FORWARD, "left": TURN_LEFT, "right": TURN_RIGHT,
+                "all": UNIFIED}
 
 # order of the VO expert list (vo/ensemble.py): action -> expert slot
 VO_EXPERT_ACTIONS = (MOVE_FORWARD, TURN_LEFT, TURN_RIGHT)

@@ -12,18 +12,27 @@ expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`,
 :func:`stacked_vo_variables` and :func:`policy_variables_from_state_dict`
 go the other way.  A gradient tree has the parameters' structure, so
 ``{name: p.grad}`` maps back the same way.
+
+:func:`load_vo_checkpoint` and :func:`load_policy_checkpoint` read the
+reference's ``.pth`` containers (and the port's own RL checkpoints, which
+use the same one): the port's modules carry the reference's key names, so
+loading is unwrapping the container and stripping the ``actor_critic.``
+prefix, then ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint
 from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
+
+POLICY_PREFIX = "actor_critic."
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -320,3 +329,50 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m._mean.zero_()
                 m._var.fill_(1.0)
     return module
+
+
+def vo_state_dict_from_container(ckpt: Mapping[str, Any],
+                                 act_idx: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """One VO expert's state dict out of a reference VO checkpoint:
+    ``{"model_states": {act_idx: sd}}`` (per action), ``{"model_state":
+    sd}`` or a bare state dict; or out of the port's own VO training
+    checkpoint (``experts`` in its ``action_type`` order)."""
+    if "model_state" in ckpt:
+        sd = ckpt["model_state"]
+    elif "model_states" in ckpt:
+        if act_idx is None:
+            raise ValueError("a per-action VO checkpoint needs act_idx")
+        sd = ckpt["model_states"][act_idx]
+    elif "experts" in ckpt:
+        acts = ckpt["train_config"]["action_type"]
+        acts = list(acts) if isinstance(acts, (list, tuple)) else [acts]
+        if act_idx is None and len(acts) == 1:
+            act_idx = acts[0]
+        if act_idx not in acts:
+            raise ValueError(f"the checkpoint's experts are for actions {acts}, "
+                             f"not act_idx {act_idx}")
+        sd = ckpt["experts"][acts.index(act_idx)]
+    else:
+        sd = ckpt
+    return dict(sd)
+
+
+def load_vo_checkpoint(path: str, act_idx: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`models.vo_cnn.VOCNN` in a reference VO
+    ``.pth`` (see :func:`vo_state_dict_from_container`)."""
+    return vo_state_dict_from_container(load_checkpoint(path), act_idx)
+
+
+def policy_state_dict_from_container(ckpt: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The actor-critic's state dict out of an RL checkpoint: the
+    ``state_dict`` entry (or a bare state dict), ``actor_critic.`` prefix
+    stripped where present."""
+    sd = ckpt.get("state_dict", ckpt)
+    return {(k[len(POLICY_PREFIX):] if k.startswith(POLICY_PREFIX) else k): v
+            for k, v in sd.items()}
+
+
+def load_policy_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """The state dict of :class:`models.policy.PointNavActorCritic` in a
+    reference RL ``.pth`` or one of the port's RL checkpoints."""
+    return policy_state_dict_from_container(load_checkpoint(path))

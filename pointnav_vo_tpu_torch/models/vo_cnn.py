@@ -160,6 +160,7 @@ def draw_dropout_masks(generator: torch.Generator, lead: Tuple[int, ...], flat: 
 _VARIANTS = {
     "vo_cnn_rgb_d_dd_top_down": ("rgb", "depth", "discretized_depth", "top_down_view"),
 }
+VO_MODEL_NAMES = tuple(_VARIANTS)
 
 
 def make_vo_model(name: str, *, observation_space: Sequence[str],

@@ -276,6 +276,9 @@ class VectorEnv:
         """Per-env episode counts; ``None`` marks an unbounded generator."""
         return [getattr(e, "number_of_episodes", None) for e in self.envs]
 
+    def close(self) -> None:
+        """In-process envs hold nothing to release."""
+
 
 def _batch_obs(obs_list: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     """Stack a list of obs dicts into batched arrays."""
@@ -285,3 +288,27 @@ def _batch_obs(obs_list: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 def make_scripted_vector_env(cfg: EnvConfig, num_envs: int, seed: int = 0) -> VectorEnv:
     return VectorEnv([(lambda s=seed + i: ScriptedPointNavEnv(cfg, seed=s))
                       for i in range(num_envs)])
+
+
+def env_config_from_task(config, noisy: bool = True) -> EnvConfig:
+    """The EnvConfig of an experiment config tree (the task keys the
+    reference forwards into each env worker)."""
+    task = config.TASK_CONFIG
+    sim = task.SIMULATOR
+    return EnvConfig(
+        image_h=sim.DEPTH_SENSOR.HEIGHT,
+        image_w=sim.DEPTH_SENSOR.WIDTH,
+        hfov_deg=sim.DEPTH_SENSOR.HFOV,
+        min_depth=sim.DEPTH_SENSOR.MIN_DEPTH,
+        max_depth=sim.DEPTH_SENSOR.MAX_DEPTH,
+        forward_step=sim.get("FORWARD_STEP_SIZE", 0.25),
+        turn_angle_deg=sim.TURN_ANGLE,
+        max_episode_steps=task.ENVIRONMENT.MAX_EPISODE_STEPS,
+        success_distance=task.TASK.SUCCESS_DISTANCE,
+        slack_reward=config.RL.SLACK_REWARD,
+        success_reward=config.RL.SUCCESS_REWARD,
+        actuation_noise_multiplier=(sim.NOISE_MODEL.NOISE_MULTIPLIER if noisy else 0.0),
+        rgb_noise_intensity=(
+            sim.RGB_SENSOR.NOISE_MODEL_KWARGS.intensity_constant if noisy else 0.0),
+        depth_noise_multiplier=1.0 if noisy else 0.0,
+    )

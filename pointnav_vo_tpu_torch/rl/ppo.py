@@ -85,6 +85,13 @@ class PPOOptimizer:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> Dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: PPOConfig,
                    total_updates: Optional[int] = None) -> PPOOptimizer:

@@ -24,7 +24,11 @@ import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import resolve_device
-from pointnav_vo_tpu_torch.io.weights import seeded_init_
+from pointnav_vo_tpu_torch.io.weights import (
+    POLICY_PREFIX,
+    policy_state_dict_from_container,
+    seeded_init_,
+)
 from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update
@@ -197,6 +201,33 @@ class DDPPOTrainer:
         self.timing["update"] += time.perf_counter() - t0
         self.update_idx += 1
         return stats
+
+    # -- checkpoint state ------------------------------------------------------
+
+    def checkpoint_state(self) -> Dict:
+        """The resumable state in the reference's RL ``.pth`` container:
+        ``state_dict`` (``actor_critic.`` keys), ``optimizer``, the
+        generator's state, ``count_steps`` and ``update_idx``."""
+        return {
+            "state_dict": {POLICY_PREFIX + k: v for k, v in self.model.state_dict().items()},
+            "optimizer": self.optimizer.state_dict(),
+            "generator": {"device": self.device.type, "state": self.generator.get_state()},
+            "count_steps": self.count_steps,
+            "update_idx": self.update_idx,
+        }
+
+    def load_checkpoint_state(self, state: Mapping) -> None:
+        """Restore :meth:`checkpoint_state`; the generator's state only
+        loads on a device of the type that saved it."""
+        self.model.load_state_dict(policy_state_dict_from_container(state), strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        gen = state["generator"]
+        if gen["device"] != self.device.type:
+            raise ValueError(f"generator state saved on {gen['device']}, trainer on "
+                             f"{self.device.type}: resume on the device that saved it")
+        self.generator.set_state(gen["state"])
+        self.count_steps = int(state["count_steps"])
+        self.update_idx = int(state["update_idx"])
 
     def train(self, num_updates: int, log_fn=None):
         """``num_updates`` rounds of rollout and update; returns each

@@ -43,12 +43,19 @@ from pointnav_vo_tpu_torch.common import (
     TURN_RIGHT,
     resolve_device,
 )
+from pointnav_vo_tpu_torch.io.checkpoint import (
+    AsyncCheckpointWriter,
+    load_checkpoint,
+    rng_state_bundle,
+    save_checkpoint,
+)
 from pointnav_vo_tpu_torch.io.weights import seeded_init_
 from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN
 from pointnav_vo_tpu_torch.vo import losses as losses_lib
 from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader
 from pointnav_vo_tpu_torch.vo.ensemble import (
     VOInferenceConfig,
+    preprocess_obs_pairs,
     preprocess_obs_pairs_packed,
     preprocess_obs_pairs_twins_packed,
 )
@@ -380,27 +387,51 @@ class VORegressionEngine:
                              for k, v in dump.items()}, f)
         return out
 
-    def save_ckpt(self, path: str) -> None:
-        """Resumable state in the port's ``torch.save`` format: the experts,
-        the optimizer, the dropout generator and the epoch."""
-        state = {
+    def checkpoint_state(self) -> Dict:
+        """Resumable state: the experts, the optimizer, the dropout
+        generator, the epoch, both configs and the host RNG states."""
+        return {
             "epoch": self.epoch,
             "train_config": dataclasses.asdict(self.tcfg),
             "inference_config": dataclasses.asdict(self.icfg),
             "experts": [m.state_dict() for m in self.experts],
             "optimizer": self.opt.state_dict(),
             "generator": self.generator.get_state(),
+            "host_rng": rng_state_bundle(),
         }
-        torch.save(state, path)
+
+    def save_ckpt(self, path: str, extra: Optional[Mapping[str, Any]] = None,
+                  writer: Optional[AsyncCheckpointWriter] = None) -> None:
+        """:meth:`checkpoint_state` and ``extra`` (the run's metadata) in
+        ``torch.save`` form, written atomically; through ``writer`` the
+        write overlaps the next epoch's compute."""
+        state = {**self.checkpoint_state(), **(extra or {})}
+        if writer is not None:
+            writer.save(path, state)
+        else:
+            save_checkpoint(path, state)
 
     def load_ckpt(self, path: str) -> Dict:
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        state = load_checkpoint(path)
         for m, sd in zip(self.experts, state["experts"], strict=True):
             m.load_state_dict(sd, strict=True)
         self.opt.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"])
         self.epoch = state["epoch"]
         return state
+
+    def obs_snapshot(self) -> Dict[str, np.ndarray]:
+        """The first train sample's pair channels (rgb ``[H, W, 6]`` in
+        0-255, depth and top_down_view ``[H, W, 2]``, ...) of one fixed
+        train batch, for the per-epoch TensorBoard image dumps."""
+        if self.train_reader is None:
+            raise ValueError("obs_snapshot needs a train_reader")
+        batch = next(iter(self.train_reader.iter_batches(
+            self.tcfg.batch_size, rng=np.random.default_rng(0), drop_last=True)))
+        frames = [torch.from_numpy(np.ascontiguousarray(getattr(batch, k)[:1])).to(self.device)
+                  for k in ("prev_rgb", "prev_depth", "cur_rgb", "cur_depth")]
+        return {k: v[0].cpu().numpy() for k, v in
+                preprocess_obs_pairs(*frames, self.icfg).items()}
 
     def train(self, ckpt_dir: Optional[str] = None, eval_every: int = 1,
               log_fn=None) -> list:

@@ -207,6 +207,18 @@ class VOEnsemble:
                 experts.append(m)
         self.experts = [m.to(self.device).eval() for m in experts]
 
+    @classmethod
+    def from_torch_checkpoints(cls, cfg: VOInferenceConfig, ckpt_paths: Mapping[str, str],
+                               device=None) -> "VOEnsemble":
+        """The experts of ``{"forward": path, "left": path, "right": path}``
+        reference ``.pth`` files (the ``all_pretrained_ckpt`` layout of
+        ``configs/rl/ddppo_pointnav.yaml``)."""
+        from pointnav_vo_tpu_torch.common import ACT_NAME2IDX
+        from pointnav_vo_tpu_torch.io.weights import load_vo_checkpoint
+
+        return cls(cfg, [load_vo_checkpoint(ckpt_paths[name], ACT_NAME2IDX[name])
+                         for name in ("forward", "left", "right")], device=device)
+
     @torch.no_grad()
     def predict_packed(self, obs_pairs: torch.Tensor, actions_np) -> torch.Tensor:
         """Det delta ``[B, 3]`` of packed pairs ``[B, H, W, 2C]``; each sample
