@@ -25,14 +25,22 @@ Phases, each printing a line; any failure exits non-zero:
    2-layer LSTM-512 policy at 341x192, seeded random weights, fp32, TF32
    off) over 32 scripted envs, an exact set of 32 episodes; the kernel's
    launch count must rise by exactly steps + 1.  Then the per-step time of
-   ``fused_vo_act_step`` and one step held against the same step on the CPU;
+   ``fused_vo_act_step`` and one step held against the same step on the CPU.
+   Then the same in bf16 (``precision="bf16"``, the JAX package's deployed
+   mode): ``Evaluator.run`` (steps + 1 launches), the step's time and device
+   time, and one bf16 step held against the CPU's bf16 step and against the
+   card's fp32 step (deltas within a stated relative distance, actions equal
+   wherever the fp32 logit margin exceeds a stated bound);
 4. rnd eval: ``Evaluator.run`` again with the experts in rnd mode (10
    dropout passes, mean and std) and sampled actions, an exact set of 32
    episodes: finite aggregates, ``vo_pred_std_mean > 0``, steps + 1
    launches.  Then the rnd step's time, a profiler breakdown, and one rnd
    step held against the CPU on the same dropout masks (mode actions);
 5. steady-state VO: ``VOEnsemble.predict_step_cached`` at batch 512 with a
-   70/15/15 forward/left/right action mix, frame-pairs/s;
+   70/15/15 forward/left/right action mix in fp32, bf16, fp32 with the int8
+   feature cache and bf16 with it: ms/step, device ms, frame-pairs/s, peak
+   memory and the cache's bytes per frame; the int8 deltas within 0.05 of
+   the native ones, and the fp32+int8 pack ``torch.equal`` to the CPU's;
 6. VO training (``VORegressionEngine``, full width, seeded experts, frame
    pairs from the scripted env held in memory: the card has no h5py):
    (a) the forward stage at batch 128: ``train_epoch`` over 8 steps, 8 steps
@@ -45,7 +53,11 @@ Phases, each printing a line; any failure exits non-zero:
    breakdown; (c) one train step of each stage at batch 8 (dropout off)
    held against the same step on the CPU: loss, every gradient (beside
    both devices' distance from a float64 step) and the whitening
-   statistics;
+   statistics; (d) both stages again in bf16 mixed precision at batch 128:
+   the fixed batch's loss over 8 steps (it must fall), step ms and
+   frame-pairs/s, parameters and Adam moments still float32, and one bf16
+   step at batch 8 held against the CPU's bf16 step, both sides' gradients
+   beside the float64 step of (c);
 7. policy training (``DDPPOTrainer``, the config of
    ``configs/rl/ddppo_pointnav.yaml``: the ResNet18 + 2-layer LSTM-512
    policy and three det VO experts in the loop at 341x192, 2 envs, 128
@@ -68,11 +80,22 @@ Phases, each printing a line; any failure exits non-zero:
    Wall time of each run, env-steps/s, checkpoint bytes, sync and async
    save times, the eval metrics;
 9. the deployment agent: one episode of ``PointNavVOAgent`` (det, seeded
-   weights, STOP logit lowered, 24-step cap) on a scripted env at full
-   width, every act held against the same agent on the CPU (actions equal,
-   goal within rtol 1e-3 / atol 1e-4), one launch an act after the first
-   and one more on the first VO step, the per-act time (host clock,
-   synchronized).
+   weights, STOP logit lowered and a planned act's logit raised before each
+   act, so the forward, left and right experts each run, 24-step cap) on a
+   scripted env at full width, every act held against the same agent on
+   the CPU (actions equal, goal within rtol 1e-3 / atol 1e-4), each expert
+   run at least once, one launch an act after the first and one more on the
+   first VO step, the per-act time (host clock, synchronized), and the
+   goal's drift at the episode's end (card against CPU, and against the
+   true goal);
+10. the 994-episode protocol at a smoke size
+   (``pointnav_vo_tpu_torch/examples/eval_994.py``): three bf16 experts
+   trained for one epoch on 600 oracle-follower pairs held in memory,
+   then ``Evaluator.run`` of 32 distinct episodes over 32 envs with the
+   greedy goal policy (a 30-step cap), ``bin_counts`` launched exactly
+   once per step plus one.
+
+Each phase's wall time is printed after it (``[time]``).
 
 The second-to-last lines are the kernels' JSON record and the card's
 ``nvidia-smi`` name/power line; the last line is the run's JSON verdict.
@@ -112,6 +135,25 @@ CLI_RESUME_UPDATES = 3
 CLI_EVAL_EPISODES = 2  # EVAL.TEST_EPISODE_COUNT per checkpoint
 CLI_EVAL_CAP = 20  # TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS of the eval sweep
 AGENT_CAP = 24  # phase 9: the episode's step cap
+# phase 9: the action logits' bias before each act: STOP lowered, and the
+# act of AGENT_PLAN (cycled; forward, left, right) raised by AGENT_FAVOUR, so
+# that every expert runs
+AGENT_STOP_BIAS = -4.0
+AGENT_PLAN = (1, 1, 2, 1, 3)
+AGENT_FAVOUR = 8.0
+STEADY_CONFIGS = (("fp32", "native"), ("bf16", "native"), ("fp32", "int8"), ("bf16", "int8"))
+INT8_DELTA_ABS = 0.05  # int8 vs native deltas: tests/test_vo_ensemble.py's bound
+INT8_PACK_ROWS = 64  # phase 5: frames of the int8 pack held card vs CPU
+LOGIT_MARGIN = 0.05  # bf16 and fp32 actions agree where the fp32 top-two logit gap exceeds this
+BF16_DELTA_REL = 5e-2  # bf16 deltas: relative L2 distance over the fp32 deltas' norm
+# phase 6's bf16 gradient gates (see _train_step_bf16_vs_cpu)
+BF16_SIDE_RATIO = 1.5
+BF16_GRAD_REL = 0.27
+BF16_TENSOR_RATIO = 2.0
+BF16_TENSOR_FLOOR = 5e-2
+E994_PAIRS, E994_EVAL_PAIRS, E994_EPOCHS = 600, 64, 1  # phase 10
+E994_EPISODES, E994_CAP = 32, 30
+BF16_EVAL_CAP = 10  # phase 3 in bf16: the episode cap of its Evaluator.run
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -477,6 +519,112 @@ def _compare_step(got, want):
     return errs
 
 
+def _logits(policy, args, polar):
+    """The policy's logits on a fused step's inputs with ``polar`` as goal."""
+    import torch
+
+    with torch.no_grad():
+        obs = {"rgb": args["cur_rgb"], "depth": args["cur_depth"],
+               "pointgoal_with_gps_compass": polar}
+        return policy(obs, args["hidden"], args["prev_actions"], args["masks"])[0]
+
+
+def _bf16_vs(got, want, margin, what):
+    """A bf16 fused step against a reference step (the CPU's bf16 or the
+    card's fp32): the delta within BF16_DELTA_REL of the reference's norm,
+    the actions equal where ``margin`` (the fp32 step's top-two logit gap)
+    exceeds LOGIT_MARGIN.  Returns the measured distances."""
+    import torch
+
+    g_delta, w_delta = got[2].cpu().double(), want[2].cpu().double()
+    rel = float((g_delta - w_delta).norm() / w_delta.norm().clamp(min=1e-30))
+    firm = margin.cpu() > LOGIT_MARGIN
+    differ = (got[5].cpu() != want[5].cpu())[:, 0]
+    out = {"delta_rel_l2": rel, "delta_max_abs": float((g_delta - w_delta).abs().max()),
+           "goal_max_abs": float((got[0].cpu() - want[0].cpu()).abs().max()),
+           "actions_differ": int(differ.sum()), "rows_within_margin": int((~firm).sum())}
+    if rel > BF16_DELTA_REL:
+        raise AssertionError(f"bf16 step vs {what}: delta relative L2 {rel} > {BF16_DELTA_REL}")
+    if bool((differ & firm).any()):
+        raise AssertionError(f"bf16 step vs {what}: actions differ where the fp32 logit margin "
+                             f"exceeds {LOGIT_MARGIN}")
+    if got[8].dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 step's feature cache is {got[8].dtype}")
+    return out
+
+
+def phase_main_path_bf16(dev, card):
+    """Phase 3 in bf16: the eval loop, the step's times, and one step against
+    the CPU's bf16 step and the card's fp32 step."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator, fused_vo_act_step
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    n_envs = n_episodes = N_ENVS
+    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, precision="bf16")
+    cfg32 = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED)
+    vo32, _policy32, _cpu_vo32, _cpu_policy32 = _build_models(cfg32, dev, SEED)
+    env_cfg = EnvConfig(image_h=H, image_w=W, max_episode_steps=BF16_EVAL_CAP)
+    ev = Evaluator(model=policy, envs=make_scripted_vector_env(env_cfg, n_envs, seed=SEED),
+                   vo_ensemble=vo, device=dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = ev.run(n_episodes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    loop_steps = max(r.steps for r in ev.results)
+    _log("main-bf16", "Evaluator.run: " + json.dumps(agg, sort_keys=True))
+    if agg["episodes"] != n_episodes or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"bf16 eval: {agg}")
+    if launches != loop_steps + 1:
+        raise AssertionError(f"bf16 eval: bin_counts launched {launches} times over "
+                             f"{loop_steps} steps; expected steps + 1")
+    _log("main-bf16", f"{loop_steps} steps, {int(agg['total_env_steps'])} env steps, wall "
+                      f"{wall:.3f} s, bin_counts launches {launches}")
+
+    probe = make_scripted_vector_env(env_cfg, n_envs, seed=SEED + 1)
+    obs0 = probe.reset()
+    rng = np.random.default_rng(SEED)
+    actions = np.where(rng.uniform(size=n_envs) < 0.7, 1,
+                       rng.integers(2, 4, n_envs)).astype(np.int64)
+    obs1 = probe.step(actions)[0]
+    args = _fused_inputs(obs0, obs1, actions, dev, cfg, policy)
+    args32 = _fused_inputs(obs0, obs1, actions, dev, cfg32, policy)
+    step_ms = _time_ms(lambda: fused_vo_act_step(policy, vo, **args), iters=20)
+    step32_ms = _time_ms(lambda: fused_vo_act_step(policy, vo32, **args32), iters=20)
+    prof = _profile(f"bf16 fused_vo_act_step at {n_envs} envs",
+                    lambda: fused_vo_act_step(policy, vo, **args))
+    prof32 = _profile(f"fp32 fused_vo_act_step at {n_envs} envs (beside it)",
+                      lambda: fused_vo_act_step(policy, vo32, **args32))
+    _log("main-bf16", f"fused_vo_act_step at {n_envs} envs: bf16 {step_ms:.4f} ms/step, fp32 "
+                      f"{step32_ms:.4f} ms/step in the same call (CUDA events); device "
+                      f"{prof['busy_ms'] if prof else 'not measured'} ms bf16, "
+                      f"{prof32['busy_ms'] if prof32 else 'not measured'} ms fp32 on {card}")
+
+    got = fused_vo_act_step(policy, vo, **args)
+    want32 = fused_vo_act_step(policy, vo32, **args32)
+    top2 = torch.topk(_logits(policy, args32, want32[1]), 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    cpu_args = _fused_inputs(obs0, obs1, actions, torch.device("cpu"), cfg, cpu_policy)
+    want_cpu = fused_vo_act_step(cpu_policy, cpu_vo, **cpu_args)
+    vs_cpu = _bf16_vs(got, want_cpu, margin, "the CPU's bf16 step")
+    vs_fp32 = _bf16_vs(got, want32, margin, "the card's fp32 step")
+    _log("main-bf16", f"card bf16 step vs CPU bf16 step (delta relative L2 bound "
+                      f"{BF16_DELTA_REL}, actions equal where the fp32 logit margin > "
+                      f"{LOGIT_MARGIN}): " + json.dumps(vs_cpu, sort_keys=True))
+    _log("main-bf16", "card bf16 step vs card fp32 step (the same bounds): "
+                      + json.dumps(vs_fp32, sort_keys=True))
+    return {"launches": launches, "loop_steps": loop_steps, "wall_s": wall, "step_ms": step_ms,
+            "fp32_step_ms": step32_ms, "device_ms": prof["busy_ms"] if prof else None,
+            "fp32_device_ms": prof32["busy_ms"] if prof32 else None, "vs_cpu_bf16": vs_cpu,
+            "vs_card_fp32": vs_fp32, "metrics": agg}
+
+
 def phase_rnd_eval(dev):
     """The eval loop with the VO in rnd mode and sampled actions."""
     import torch
@@ -546,6 +694,8 @@ def phase_rnd_eval(dev):
 
 
 def phase_steady_vo(dev, card):
+    """The B=512 steady-state VO step in each of STEADY_CONFIGS, the same
+    experts and frames in each."""
     import torch
 
     from pointnav_vo_tpu_torch.io.weights import seeded_init_
@@ -556,122 +706,88 @@ def phase_steady_vo(dev, card):
     )
 
     batch, iters = STEADY_BATCH, 10
-    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
-    g = torch.Generator().manual_seed(SEED + 2)
-    vo = VOEnsemble(cfg, experts=[seeded_init_(cfg.make_model(), g) for _ in range(3)],
-                    device=dev)
     rng = np.random.default_rng(SEED)
     frames = [(torch.from_numpy(rng.uniform(0, 255, (batch, H, W, 3)).astype(np.float32)).to(dev),
                torch.from_numpy(rng.uniform(0, 1, (batch, H, W, 1)).astype(np.float32)).to(dev))
               for _ in range(2)]
     actions = np.where(rng.uniform(size=batch) < 0.7, 1,
                        rng.integers(2, 4, batch)).astype(np.int64)
-    state = {"feats": frame_features_packed(*frames[0], cfg), "i": 0}
+    out, fixed = {}, {}
+    for precision, cache_dtype in STEADY_CONFIGS:
+        cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, precision=precision,
+                                cache_dtype=cache_dtype)
+        g = torch.Generator().manual_seed(SEED + 2)
+        vo = VOEnsemble(cfg, experts=[seeded_init_(cfg.make_model(), g) for _ in range(3)],
+                        device=dev)
+        state = {"feats": frame_features_packed(*frames[0], cfg), "i": 0}
 
-    def step():
-        rgb, depth = frames[state["i"] % 2]
-        state["i"] += 1
-        delta, state["feats"] = vo.predict_step_cached(state["feats"], rgb, depth, actions)
-        return delta
+        def step():
+            rgb, depth = frames[state["i"] % 2]
+            state["i"] += 1
+            delta, state["feats"] = vo.predict_step_cached(state["feats"], rgb, depth, actions)
+            return delta
 
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms = _time_ms(step, iters, warmup=2)
-    _profile(f"predict_step_cached at B={batch}", step, iters=2)
-    delta = step()
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(delta).all()) or delta.shape != (batch, 3):
-        raise AssertionError("steady-state VO delta is not finite [512, 3]")
-    pairs = batch / (ms / 1e3)
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    _log("steady", f"predict_step_cached B={batch} fp32 70/15/15: {ms:.3f} ms/step, "
-                   f"{pairs:.2f} frame-pairs/s, peak {peak:.2f} GiB on {card}")
-    return ms, pairs
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = _time_ms(step, iters, warmup=2)
+        name = f"{precision}+{cache_dtype}"
+        prof = _profile(f"predict_step_cached at B={batch} {name}", step, iters=2)
+        delta = step()
+        torch.cuda.synchronize()
+        feats = state["feats"]
+        want = torch.int8 if cache_dtype == "int8" else cfg.dtype
+        if not bool(torch.isfinite(delta).all()) or delta.shape != (batch, 3):
+            raise AssertionError(f"steady-state VO {name}: delta is not finite [512, 3]")
+        if feats.dtype != want:
+            raise AssertionError(f"steady-state VO {name}: the cache is {feats.dtype}")
+        rec = {"ms": ms, "device_ms": prof["busy_ms"] if prof else None,
+               "frame_pairs_per_s": batch / (ms / 1e3),
+               "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+               "cache_bytes_per_frame": feats[0].numel() * feats.element_size()}
+        out[name] = rec
+        _log("steady", f"predict_step_cached B={batch} {name} 70/15/15: {ms:.3f} ms/step "
+                       f"(device {rec['device_ms']} ms), {rec['frame_pairs_per_s']:.2f} "
+                       f"frame-pairs/s, peak {rec['peak_gib']:.2f} GiB, cache "
+                       f"{rec['cache_bytes_per_frame']} B a frame on {card}")
+        # one fixed step, frames[0] cached -> frames[1], for the int8 checks
+        # (kept small and off the card: the next configs' peaks stay their own)
+        delta, pack = vo.predict_step_cached(frame_features_packed(*frames[0], cfg),
+                                             *frames[1], actions)
+        fixed[name] = (delta, pack[:INT8_PACK_ROWS].cpu())
+        del vo, state, feats, delta, pack
 
-
-class _MemoryPairs:
-    """Frame pairs of the scripted env held in memory, with the reader
-    interface the training engine takes (``iter_batches``,
-    ``num_samples``).  An entry is (prev, cur, action, global poses); with
-    ``twins`` each entry also yields its swapped twin right after it (the
-    opposite turn, its target from the global poses), and a batch of whole
-    twins ships each entry's frames once."""
-
-    def __init__(self, entries, twins):
-        self.entries = entries
-        self.twins = twins
-
-    @classmethod
-    def scripted(cls, n, action_fn, seed, twins=False):
-        from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
-
-        env = ScriptedPointNavEnv(EnvConfig(image_h=H, image_w=W), seed=seed)
-        rng = np.random.default_rng(seed)
-        obs, entries = env.reset(), []
-        while len(entries) < n:
-            a = int(action_fn(rng))
-            pos0, rot0 = env.global_pose()
-            new, _r, done, _i = env.step(a)
-            pos1, rot1 = env.global_pose()
-            if not done:
-                entries.append((obs["rgb"].astype(np.uint8), obs["depth"].astype(np.float16),
-                                new["rgb"].astype(np.uint8), new["depth"].astype(np.float16),
-                                a, (pos0, rot0, pos1, rot1)))
-            obs = env.reset() if done else new
-        return cls(entries, twins)
-
-    def num_samples(self):
-        return len(self.entries) * (2 if self.twins else 1)
-
-    def _samples(self, order):
-        from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
-        from pointnav_vo_tpu_torch.vo.dataset import inverse_delta_from_global
-
-        for e in order:
-            prev_rgb, prev_d, cur_rgb, cur_d, a, (pos0, rot0, pos1, rot1) = self.entries[e]
-            # cur relative to prev; the twin: prev relative to cur
-            yield e, False, a, inverse_delta_from_global(rot1, pos1, rot0, pos0)
-            if self.twins:
-                flipped = TURN_RIGHT if a == TURN_LEFT else TURN_LEFT
-                yield e, True, flipped, inverse_delta_from_global(rot0, pos0, rot1, pos1)
-
-    def iter_batches(self, batch_size, rng=None, drop_last=False):
-        order = np.arange(len(self.entries))
-        if rng is not None:
-            order = rng.permutation(order)
-        pending = []
-        for sample in self._samples(order):
-            pending.append(sample)
-            if len(pending) == batch_size:
-                yield self._assemble(pending)
-                pending = []
-        if pending and not drop_last:
-            yield self._assemble(pending)
-
-    def _assemble(self, items):
-        from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch
-
-        packed = (self.twins and len(items) % 2 == 0
-                  and all(not items[k][1] and items[k + 1][1]
-                          for k in range(0, len(items), 2)))
-        pix = {"prev_rgb": [], "prev_depth": [], "cur_rgb": [], "cur_depth": []}
-        for e, swapped, _a, _d in items:
-            if packed and swapped:
-                continue  # packed twins: each entry's frames once
-            prev_rgb, prev_d, cur_rgb, cur_d = self.entries[e][:4]
-            if swapped:
-                prev_rgb, prev_d, cur_rgb, cur_d = cur_rgb, cur_d, prev_rgb, prev_d
-            for k, v in zip(pix, (prev_rgb, prev_d, cur_rgb, cur_d)):
-                pix[k].append(v)
-        n = len(items)
-        return FramePairBatch(
-            **{k: np.stack(v) for k, v in pix.items()},
-            actions=np.asarray([it[2] for it in items], np.int32),
-            gt_delta=np.stack([it[3] for it in items]).astype(np.float32),
-            data_types=np.asarray([int(it[1]) for it in items], np.int32),
-            dz_regress_mask=np.ones(n, np.float32),
-            chunk_idx=np.zeros(n, np.int32),
-            entry_idx=np.asarray([it[0] for it in items], np.int32),
-            twins_packed=packed)
+    # int8 against native at full width: JAX's bound (tests/test_vo_ensemble.py)
+    for precision in ("fp32", "bf16"):
+        err = float((fixed[f"{precision}+int8"][0] - fixed[f"{precision}+native"][0])
+                    .abs().max())
+        out[f"{precision}+int8"]["delta_vs_native_max_abs"] = err
+        _log("steady", f"B={batch} {precision}: int8 deltas vs native max abs {err:.3e} "
+                       f"(bound {INT8_DELTA_ABS})")
+        if not err < INT8_DELTA_ABS:
+            raise AssertionError(f"steady-state VO {precision}: int8 deltas {err} from native")
+    # the card's fp32+int8 pack against (a) the plain quantization, on the
+    # CPU, of the card's own fp32 pack of the same frames: equal; (b) the
+    # CPU's fp32+int8 pack: equal wherever the two fp32 packs are (these
+    # may differ in at most 0.1 % of cells: pixel_bins floors float32
+    # expressions, the standing deviation of tests/test_torch_port_ops.py)
+    got, got32 = fixed["fp32+int8"][1], fixed["fp32+native"][1]
+    plain = torch.clamp(torch.round(got32 * 127.0), 0, 127).to(torch.int8)
+    cpu_frames = [t[:INT8_PACK_ROWS].cpu() for t in frames[1]]
+    want = frame_features_packed(*cpu_frames, VOInferenceConfig(
+        vis_size_h=H, vis_size_w=W, cache_dtype="int8"))
+    want32 = frame_features_packed(*cpu_frames, VOInferenceConfig(vis_size_h=H, vis_size_w=W))
+    same32 = got32 == want32
+    rec = {"cells": want.numel(), "vs_plain_quantization": int((got != plain).sum()),
+           "fp32_pack_vs_cpu": int((~same32).sum()),
+           "vs_cpu_where_fp32_equal": int(((got != want) & same32).sum())}
+    out["fp32+int8"]["pack_cells_differing"] = rec
+    _log("steady", f"fp32+int8 pack of {INT8_PACK_ROWS} frames, int8 cells differing (card vs "
+                   f"the plain quantization of its fp32 pack, and vs the CPU's pack where "
+                   f"the fp32 packs agree: both must be 0): " + json.dumps(rec))
+    if (got.dtype != torch.int8 or rec["vs_plain_quantization"] or rec["vs_cpu_where_fp32_equal"]
+            or rec["fp32_pack_vs_cpu"] > 1e-3 * rec["cells"]):
+        raise AssertionError(f"the card's fp32+int8 pack: {rec}")
+    return out
 
 
 def _train_stage(dev, card, stage, engine, data, eval_data):
@@ -807,7 +923,131 @@ def _train_step_vs_cpu(dev, stage, tcfg, batch, experts):
                   f"(CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst gradient error over "
                   "tensors [relative L2, max abs / max abs]: "
                   + json.dumps(worst) + "; whitening statistics agree")
-    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}
+    grads64 = [p.grad for m in cpu64 for p in m.parameters()]
+    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}, grads64
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def _train_stage_bf16(dev, card, stage, engine, data):
+    """bf16 mixed precision on one fixed batch: the loss over 8 steps under
+    fixed dropout masks (it must fall), exactly 2 launches a step, the step's
+    time, and every parameter and Adam moment still float32."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    batch = next(data.iter_batches(TRAIN_BATCH))
+    gen_state = engine.generator.get_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk.reset_launch_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        engine.generator.set_state(gen_state)
+        losses.append(float(engine.train_step(batch)["total_loss"]))
+    launches = tk.launch_counts["bin_counts"]
+    if launches != 2 * (TRAIN_STEPS + 1):
+        raise AssertionError(f"{stage} bf16: {launches} bin_counts launches over "
+                             f"{TRAIN_STEPS + 1} steps; expected 2 a step")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{stage} bf16: the fixed batch's loss did not fall: {losses}")
+    params = [p for m in engine.experts for p in m.parameters()]
+    moments = [t for st in engine.opt.state.values() for t in (st["exp_avg"], st["exp_avg_sq"])]
+    if not (all(p.dtype == p.grad.dtype == torch.float32 for p in params)
+            and len(moments) == 2 * len(params)
+            and all(t.dtype == torch.float32 for t in moments)):
+        raise AssertionError(f"{stage} bf16: parameters, gradients or Adam moments left float32")
+    step_ms = _time_ms(lambda: engine.train_step(batch), iters=5, warmup=1)
+    prof = _profile(f"{stage} bf16 train_step B={TRAIN_BATCH}", lambda: engine.train_step(batch),
+                    iters=2)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pairs = TRAIN_BATCH / (step_ms / 1e3)
+    _log("train-bf16", f"{stage} fixed batch, loss before each of {TRAIN_STEPS + 1} steps: "
+                       + " ".join(f"{x:.6f}" for x in losses) + f"; train_step B={TRAIN_BATCH} "
+                       f"{step_ms:.3f} ms/step, {pairs:.2f} frame-pairs/s (CUDA events, batch "
+                       f"upload included), peak {peak:.2f} GiB, bin_counts launches {launches}; "
+                       f"{len(params)} parameters and {len(moments)} Adam moments float32 on "
+                       f"{card}")
+    return {"launches": launches, "fixed_batch_losses": losses, "step_ms": step_ms,
+            "frame_pairs_per_s": pairs, "device_ms": prof["busy_ms"] if prof else None,
+            "peak_gib": peak}
+
+
+def _as_precision(experts, icfg):
+    """Copies of ``experts`` built for ``icfg``'s precision."""
+    out = [copy.deepcopy(m) for m in experts]
+    for m in out:
+        m.compute_dtype = icfg.model_dtype
+    return out
+
+
+def _train_step_bf16_vs_cpu(dev, stage, tcfg, batch, experts, grads64):
+    """One bf16 train step at full width, dropout off, from the same weights
+    and batch on the card and on the CPU, each side's gradients held against
+    ``grads64``, the float64 step of :func:`_train_step_vs_cpu`.
+
+    Each side's bf16 gradients stray from float64 by bf16's own rounding:
+    cuDNN/cuBLAS and the CPU each accumulate a bf16 conv or product in
+    float32 in their own order and round its output to bf16 once, so the
+    two sides round apart, and the roundings compound through the backward
+    of ResNet18.  A fault on one side (a wrong kernel, a scaled gradient)
+    moves that side's distance from float64 and not the other's.  So the
+    gates: loss card vs CPU rtol 2e-2; over all tensors together, the card's
+    distance from float64 at most BF16_SIDE_RATIO x the CPU's (the two
+    stray by the same amount), and card vs CPU at most BF16_GRAD_REL, about
+    twice the reading of this step on the H100 (PERF.md); each tensor's
+    card distance from float64 at most BF16_TENSOR_RATIO x the CPU's (a
+    small tensor's distance is noisier than the sum's), or at most
+    BF16_TENSOR_FLOOR."""
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0, precision="bf16")
+    runs = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        engine = VORegressionEngine(icfg, tcfg, device=device,
+                                    experts=_as_precision(experts, icfg))
+        loss = float(engine.train_step(batch)["total_loss"])
+        runs[name] = (loss, [p.grad for m in engine.experts for p in m.parameters()])
+    (loss_card, card), (loss_cpu, cpu) = runs.values()
+
+    def flat(grads):
+        return torch.cat([g.flatten().cpu().double() for g in grads])
+
+    ref = flat(grads64)
+    total = {"card_vs_cpu": _rel_l2(flat(card), flat(cpu)),
+             "card_vs_fp64": _rel_l2(flat(card), ref), "cpu_vs_fp64": _rel_l2(flat(cpu), ref)}
+    tensors = [(_rel_l2(gc, g64), _rel_l2(gh, g64), _rel_l2(gc, gh))
+               for gc, gh, g64 in zip(card, cpu, grads64, strict=True)]
+    bad = [i for i, (dc, dh, _) in enumerate(tensors)
+           if dc > max(BF16_TENSOR_RATIO * dh, BF16_TENSOR_FLOOR)]
+    out = {"loss": [loss_card, loss_cpu], "gradients_rel_l2": total,
+           "side_ratio": total["card_vs_fp64"] / max(total["cpu_vs_fp64"], 1e-30),
+           "worst_tensor_side_ratio": max(dc / max(dh, 1e-30) for dc, dh, _ in tensors),
+           "worst_tensor_card_vs_fp64": max(t[0] for t in tensors),
+           "worst_tensor_cpu_vs_fp64": max(t[1] for t in tensors),
+           "worst_tensor_card_vs_cpu": max(t[2] for t in tensors),
+           "tensors_over_gate": len(bad)}
+    _log("train-bf16", f"{stage} card vs CPU bf16 train step, B={PARITY_BATCH}, each beside "
+                       f"the float64 step: loss {loss_card:.8f} (CPU {loss_cpu:.8f}; rtol "
+                       f"2e-2); gradients relative L2 (gates: side ratio {BF16_SIDE_RATIO}, "
+                       f"card vs CPU {BF16_GRAD_REL}, each tensor's side ratio "
+                       f"{BF16_TENSOR_RATIO} or {BF16_TENSOR_FLOOR}): " + json.dumps(out))
+    if abs(loss_card - loss_cpu) > 2e-2 * abs(loss_cpu):
+        raise AssertionError(f"{stage} bf16: card loss {loss_card} vs CPU {loss_cpu}")
+    if out["side_ratio"] > BF16_SIDE_RATIO or total["card_vs_cpu"] > BF16_GRAD_REL:
+        raise AssertionError(f"{stage} bf16: gradients {total}")
+    if bad:
+        raise AssertionError(f"{stage} bf16: {len(bad)} gradients stray from float64 more on "
+                             f"the card than {BF16_TENSOR_RATIO}x the CPU's: "
+                             f"{[tensors[i] for i in bad]}")
+    return out
 
 
 def phase_train(dev, card):
@@ -816,15 +1056,19 @@ def phase_train(dev, card):
 
     from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
     from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs
     from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
     from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
 
     t0 = time.perf_counter()
-    forward = _MemoryPairs.scripted(TRAIN_STEPS * TRAIN_BATCH, lambda r: 1, SEED + 10)
-    fwd_eval = _MemoryPairs.scripted(EVAL_PAIRS, lambda r: 1, SEED + 11)
-    turns = _MemoryPairs.scripted(TRAIN_STEPS * TRAIN_BATCH // 2,
-                                  lambda r: r.integers(TURN_LEFT, TURN_RIGHT + 1),
-                                  SEED + 12, twins=True)
+    env_cfg = EnvConfig(image_h=H, image_w=W)
+    forward = MemoryFramePairs.scripted(TRAIN_STEPS * TRAIN_BATCH, lambda *_: 1, SEED + 10,
+                                        env_cfg=env_cfg)
+    fwd_eval = MemoryFramePairs.scripted(EVAL_PAIRS, lambda *_: 1, SEED + 11, env_cfg=env_cfg)
+    turns = MemoryFramePairs.scripted(TRAIN_STEPS * TRAIN_BATCH // 2,
+                                      lambda _env, _obs, r: r.integers(TURN_LEFT, TURN_RIGHT + 1),
+                                      SEED + 12, twins=True, env_cfg=env_cfg)
     _log("train", f"scripted frame pairs at {W}x{H}: {forward.num_samples()} forward, "
                   f"{fwd_eval.num_samples()} forward to evaluate, {len(turns.entries)} turn "
                   f"entries as {turns.num_samples()} twin samples, in "
@@ -848,13 +1092,19 @@ def phase_train(dev, card):
     if not next(turns.iter_batches(TRAIN_BATCH)).twins_packed:
         raise AssertionError("the joint stage's batches are not twin-packed")
 
-    for stage, tcfg, data, ex in (
-            ("forward", dataclasses.replace(fwd_cfg, batch_size=PARITY_BATCH), forward,
-             experts[:1]),
-            ("joint", dataclasses.replace(joint_cfg, batch_size=PARITY_BATCH), turns,
-             experts[1:])):
-        records[stage]["vs_cpu"] = _train_step_vs_cpu(
-            dev, stage, tcfg, next(data.iter_batches(PARITY_BATCH)), ex)
+    # bf16 mixed precision: the same stages, weights and data
+    icfg16 = VOInferenceConfig(vis_size_h=H, vis_size_w=W, precision="bf16")
+    for stage, tcfg, data, ex in (("forward", fwd_cfg, forward, experts[:1]),
+                                  ("joint", joint_cfg, turns, experts[1:])):
+        parity_cfg = dataclasses.replace(tcfg, batch_size=PARITY_BATCH)
+        parity_batch = next(data.iter_batches(PARITY_BATCH))
+        records[stage]["vs_cpu"], grads64 = _train_step_vs_cpu(dev, stage, parity_cfg,
+                                                                parity_batch, ex)
+        engine = VORegressionEngine(icfg16, tcfg, data, device=dev,
+                                    experts=_as_precision(ex, icfg16))
+        records[stage + "_bf16"] = _train_stage_bf16(dev, card, stage, engine, data)
+        records[stage + "_bf16"]["vs_cpu"] = _train_step_bf16_vs_cpu(
+            dev, stage, parity_cfg, parity_batch, ex, grads64)
     return records
 
 
@@ -1256,20 +1506,27 @@ def phase_cli(dev, card):
 
 def phase_agent(dev, card):
     """One full-width episode of PointNavVOAgent (det, seeded weights, the
-    STOP logit lowered so the episode runs to its cap) on a scripted env,
-    held step by step against the same agent on the CPU."""
+    STOP logit lowered so the episode runs to its cap and the logit of the
+    act AGENT_PLAN names raised before each act, so all three experts run)
+    on a scripted env, held step by step against the same agent on the CPU."""
     import torch
 
     from pointnav_vo_tpu_torch.deploy.challenge_agent import PointNavVOAgent
+    from pointnav_vo_tpu_torch.ops import geometry as geo
     from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
     from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
     from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
 
     cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
     vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED + 30)
-    for p in (policy, cpu_policy):
-        with torch.no_grad():
-            p.action_distribution.linear.bias.copy_(torch.tensor([-4.0, 0.0, 0.0, 0.0]))
+
+    def plan_bias(i):
+        bias = torch.tensor([AGENT_STOP_BIAS, 0.0, 0.0, 0.0])
+        bias[AGENT_PLAN[i % len(AGENT_PLAN)]] += AGENT_FAVOUR
+        for p in (policy, cpu_policy):
+            with torch.no_grad():
+                p.action_distribution.linear.bias.copy_(bias)
+
     goal = "pointgoal_with_gps_compass"
     card_agent = PointNavVOAgent(policy_model=policy, vo_ensemble=vo, goal_sensor=goal,
                                  device=dev)
@@ -1281,6 +1538,7 @@ def phase_agent(dev, card):
     actions, act_ms, goal_err, launches = [], [], 0.0, 0
     tk.reset_launch_counts()
     while not done:
+        plan_bias(len(actions))
         before = tk.launch_counts["bin_counts"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1296,6 +1554,9 @@ def phase_agent(dev, card):
             raise AssertionError(f"agent step {len(actions)}: card goal {got_goal}, "
                                  f"CPU {want_goal}")
         goal_err = max(goal_err, float(np.abs(got_goal - want_goal).max()))
+        # the true egocentric goal of the frame the agent acted on
+        true_goal = geo.pointgoal_polar2cartesian(torch.as_tensor(
+            obs["pointgoal_with_gps_compass"][None], dtype=torch.float32))[0].numpy()
         actions.append(a)
         obs, _r, done, info = env.step(a)
     n = len(actions)
@@ -1303,17 +1564,68 @@ def phase_agent(dev, card):
         raise AssertionError(f"agent: {launches} bin_counts launches over {n} acts "
                              "(expected one an act after the first, one more on the first "
                              "VO step)")
+    # the expert of an act runs on the next one: every act but the last
+    ran = {name: actions[:-1].count(a) for name, a in (("forward", 1), ("left", 2),
+                                                       ("right", 3))}
+    if min(ran.values()) == 0:
+        raise AssertionError(f"agent: an expert never ran ({ran}); actions {actions}")
+    end_drift = {"card_vs_cpu": float(np.abs(got_goal - want_goal).max()),
+                 "card_vs_true_goal": float(np.linalg.norm(got_goal - true_goal)),
+                 "cpu_vs_true_goal": float(np.linalg.norm(want_goal - true_goal))}
     steady = act_ms[2:]
-    out = {"acts": n, "launches": launches, "actions": actions,
+    out = {"acts": n, "launches": launches, "actions": actions, "experts_ran": ran,
            "act_ms_mean": float(np.mean(steady)), "act_ms_median": float(np.median(steady)),
-           "first_act_ms": act_ms[:2], "goal_max_abs_err": goal_err,
+           "first_act_ms": act_ms[:2], "goal_max_abs_err": goal_err, "end_drift": end_drift,
            "success": info.get("success"), "spl": info.get("spl")}
     _log("agent", f"{n} acts at {W}x{H}: per act {out['act_ms_mean']:.3f} ms mean, "
                   f"{out['act_ms_median']:.3f} ms median (host clock, synchronized, acts 3 on; "
                   f"first two {act_ms[0]:.3f}, {act_ms[1]:.3f} ms), bin_counts launches "
                   f"{launches}, actions equal to the CPU agent's, goal max abs err "
-                  f"{goal_err:.3g} (rtol 1e-3, atol 1e-4) on {card}; actions {actions}")
+                  f"{goal_err:.3g} (rtol 1e-3, atol 1e-4) on {card}; experts run "
+                  f"{json.dumps(ran)}; goal drift at the episode's end (m) "
+                  f"{json.dumps(end_drift)}; actions {actions}")
     return out
+
+
+def phase_eval_994(dev, card):
+    """The 994-episode protocol's script at a smoke size: bf16 experts
+    trained in memory, then an exact set of distinct episodes with
+    ``bin_counts`` launched exactly once per step plus one (checked by
+    ``run_protocol``)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples import eval_994
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
+
+    env_cfg = EnvConfig(image_h=H, image_w=W, max_episode_steps=E994_CAP,
+                        actuation_noise_multiplier=0.5)
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, precision="bf16")
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    experts, train = eval_994.train_experts(icfg, env_cfg, E994_PAIRS, E994_EVAL_PAIRS,
+                                            E994_EPOCHS, TRAIN_BATCH, dev,
+                                            log=lambda m: _log("994", m))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = tk.launch_counts["bin_counts"]
+    run = eval_994.run_protocol(VOEnsemble(icfg, experts=experts, device=dev), env_cfg,
+                                E994_EPISODES, N_ENVS, dev)
+    agg = run["metrics"]
+    if not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"994 smoke: non-finite metrics {agg}")
+    _log("994", f"trained 3 bf16 experts in {train_s:.1f} s (bin_counts launches "
+                f"{train_launches}); Evaluator.run of {E994_EPISODES} episodes over {N_ENVS} "
+                f"envs (cap {E994_CAP}): wall {run['wall_s']:.3f} s, {run['loop_steps']} loop "
+                f"steps, {run['distinct_episodes']} distinct episodes, bin_counts launches "
+                f"{run['bin_counts_launches']} (steps + 1), success {agg['success']:.3f}, spl "
+                f"{agg['spl']:.3f}, vo_l2 {agg.get('vo_l2_mean', float('nan')):.4f}, "
+                f"time_env_s {agg['time_env_s']:.3f}, time_device_s "
+                f"{agg['time_device_s']:.3f} on {card}")
+    return {"train_s": train_s, "train_launches": train_launches, "train": train,
+            **{k: v for k, v in run.items()}}
 
 
 def main() -> int:
@@ -1328,20 +1640,36 @@ def main() -> int:
     _log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
                 f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    card = phase_build()
-    max_err, timings = phase_kernel(dev)
-    launches, step_ms, wall, loop_steps = phase_main_path(dev)
-    rnd_launches, _rnd_ms = phase_rnd_eval(dev)
-    phase_steady_vo(dev, card)
-    train = phase_train(dev, card)
-    rl = phase_train_rl(dev, card)
-    cli = phase_cli(dev, card)
-    agent = phase_agent(dev, card)
-    by_path = {"det_eval": launches["bin_counts"], "rnd_eval": rnd_launches,
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        _log("time", f"{name}: {phase_s[name]:.1f} s")
+        return out
+
+    card = timed("build", phase_build)
+    max_err, timings = timed("kernel", phase_kernel, dev)
+    launches, step_ms, wall, loop_steps = timed("main", phase_main_path, dev)
+    main_bf16 = timed("main_bf16", phase_main_path_bf16, dev, card)
+    rnd_launches, _rnd_ms = timed("rnd", phase_rnd_eval, dev)
+    steady = timed("steady", phase_steady_vo, dev, card)
+    train = timed("train", phase_train, dev, card)
+    rl = timed("train_rl", phase_train_rl, dev, card)
+    cli = timed("cli", phase_cli, dev, card)
+    agent = timed("agent", phase_agent, dev, card)
+    e994 = timed("eval_994", phase_eval_994, dev, card)
+    by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
+               "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
-               "train_joint": train["joint"]["launches"], "train_rl": rl["launches"],
+               "train_joint": train["joint"]["launches"],
+               "train_forward_bf16": train["forward_bf16"]["launches"],
+               "train_joint_bf16": train["joint_bf16"]["launches"], "train_rl": rl["launches"],
                "cli_train_rl": cli["train"]["launches"], "cli_eval": cli["eval"]["launches"],
-               "cli_resume": cli["resume"]["launches"], "agent": agent["launches"]}
+               "cli_resume": cli["resume"]["launches"], "agent": agent["launches"],
+               "eval_994_train": e994["train_launches"],
+               "eval_994": e994["bin_counts_launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -1362,10 +1690,14 @@ def main() -> int:
         "batches": {str(b): {k: v for k, v in t.items() if k != "turns"}
                     for b, t in timings.items()},
         "turns": {str(b): t["turns"] for b, t in timings.items()},
+        "main_bf16": main_bf16,
+        "steady": steady,
         "train": train,
         "train_rl": rl,
         "cli": cli,
         "agent": agent,
+        "eval_994": e994,
+        "phase_s": phase_s,
     }]}
     print(json.dumps(record))
     print(card)

@@ -214,7 +214,9 @@ def get_vo_config(paths: Optional[List[str]] = None, opts: Optional[list] = None
             "VIS_SIZE_H": 192,
             "TRAIN": {
                 "lr": 2.5e-4,
-                # "fp32" only: "bf16" mixed precision is not ported yet
+                # "bf16": mixed precision (bfloat16 activations and convs,
+                # float32 parameters and Adam state); "fp32" matches the
+                # reference numerics
                 "precision": "fp32",
                 "weight_decay": 0.0,
                 "scheduler": "none",

@@ -116,10 +116,10 @@ def make_nav_rl_env(config: Config, num_envs: int, seed: int = 0, noisy: bool = 
 
 def vo_inference_config_from(config: Config, model_node: Config,
                              precision: str = "fp32") -> VOInferenceConfig:
+    """The model node's inference config; its ``precision`` key, else
+    ``precision`` ("fp32" or "bf16"), sets the compute dtype."""
     sim = config.TASK_CONFIG.SIMULATOR
     precision = model_node.get("precision", precision)
-    if precision != "fp32":
-        raise not_ported(f"VO precision {precision!r} (bf16 inference)", "12")
     if config.VO.get("OBS_TRANSFORM", "none") != "none":
         raise not_ported(f"VO.OBS_TRANSFORM {config.VO.OBS_TRANSFORM!r}", "12")
     if model_node.visual_backbone != "resnet18":
@@ -137,6 +137,7 @@ def vo_inference_config_from(config: Config, model_node: Config,
         hfov=sim.DEPTH_SENSOR.HFOV,  # degrees consumed as radians: the reference's quirk
         mode=model_node.get("mode", "det"),
         rnd_mode_n=model_node.get("rnd_mode_n", 10),
+        precision=precision,
     )
 
 
@@ -184,9 +185,6 @@ class VOGeoInvarianceEngine:
             raise not_ported("VO.debug (the NaN check)", "9")
         if vo.TRAIN.get("log_grad", False):
             raise not_ported("VO.TRAIN.log_grad (gradient histograms)", "9")
-        if vo.TRAIN.get("precision", "fp32") != "fp32":
-            raise not_ported(f"VO.TRAIN.precision {vo.TRAIN.precision!r} "
-                             "(bf16 mixed-precision training)", "9")
         if int(vo.TRAIN.get("decode_workers", 0)) > 0:
             raise not_ported("VO.TRAIN.decode_workers > 0 (process-parallel decode)", "9")
         act_type = vo.TRAIN.action_type
@@ -194,7 +192,10 @@ class VOGeoInvarianceEngine:
             act_type = tuple(act_type)
         geo_types = tuple(vo.GEOMETRY.invariance_types)
 
-        self.icfg = vo_inference_config_from(config, vo.MODEL)
+        # VO.MODEL.precision, else VO.TRAIN.precision: "bf16" runs the
+        # experts in bfloat16 over float32 parameters and Adam state
+        self.icfg = vo_inference_config_from(config, vo.MODEL,
+                                             precision=vo.TRAIN.get("precision", "fp32"))
         self.tcfg = VOTrainConfig(
             lr=vo.TRAIN.lr,
             eps=vo.TRAIN.eps,
@@ -225,7 +226,7 @@ class VOGeoInvarianceEngine:
         if resume_state is not None:
             self.engine.load_ckpt(config.RESUME_STATE_FILE)
         if eval_ckpt is not None:
-            self.engine.load_ckpt(eval_ckpt)
+            self.engine.load_experts(eval_ckpt)
 
     def _save_ckpt(self, epoch: int, writer=None) -> None:
         path = os.path.join(self.config.CHECKPOINT_FOLDER, f"ckpt_epoch_{epoch}.pth")
@@ -385,7 +386,7 @@ class _BaseRLEngine:
             # a periodic checkpoint or an interrupted state: restart at the
             # update it stores
             state = load_checkpoint(cfg.RESUME_STATE_FILE)
-            trainer.load_checkpoint_state(state)
+            trainer.load_checkpoint_state(state, seed=cfg.SEED)
             start_update = int(state["update"])
             trainer.update_idx = start_update
             self.logger.info(f"resumed from {cfg.RESUME_STATE_FILE} @ update {start_update}, "

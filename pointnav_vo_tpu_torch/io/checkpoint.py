@@ -13,12 +13,13 @@ file under the real name.
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import queue
 import random
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,6 +49,33 @@ def restore_rng_state(bundle: Dict[str, Any]) -> None:
     torch.set_rng_state(bundle["torch_cpu"])
     if "torch_cuda" in bundle and torch.cuda.is_available():
         torch.cuda.set_rng_state_all(bundle["torch_cuda"])
+
+
+def generator_state(generator: torch.Generator) -> Dict[str, Any]:
+    """A generator's state beside the device type it loads on."""
+    return {"device": generator.device.type, "state": generator.get_state()}
+
+
+def restore_generator(generator: torch.Generator, saved: Any, seed: int) -> bool:
+    """Load :func:`generator_state` (or a bare state) into ``generator``.
+    A state saved on another device type does not load there (a CPU
+    generator takes a 5,056-byte state, a CUDA one 16 bytes), so the
+    generator is seeded afresh from ``seed`` instead, as the JAX package
+    seeds its key from ``SEED`` on every resume, with one log line.
+    Returns whether the saved state was loaded."""
+    device, state = ((saved["device"], saved["state"]) if isinstance(saved, Mapping)
+                     else (None, saved))
+    if device in (None, generator.device.type):
+        try:
+            generator.set_state(state)
+            return True
+        except RuntimeError:  # a bare state of another device type
+            pass
+    generator.manual_seed(seed)
+    logging.getLogger(__name__).warning(
+        "generator state saved on %s does not load on %s: seeded afresh from %d",
+        device or "another device type", generator.device.type, seed)
+    return False
 
 
 def snapshot(state: Any) -> Any:

@@ -6,17 +6,44 @@ load with ``strict=True``: ``conv1.{0,1}`` (stem conv and GroupNorm),
 
 Every GroupNorm uses eps=1e-6, flax's default, which the JAX package uses
 (torch's default is 1e-5).
+
+Compute runs in the input's dtype, the parameters stay in theirs, as flax's
+``dtype=`` beside ``param_dtype=``: a bfloat16 input runs its convs in
+bfloat16 over float32 weights cast in the forward (gradients reach the
+float32 parameters through the cast), and GroupNorm takes its statistics
+and applies its affine in float32, then casts to bfloat16 (flax's
+``_normalize`` with ``force_float32_reductions``).  An input in the
+parameters' dtype runs exactly as plain ``nn.Conv2d`` and ``nn.GroupNorm``.
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 GN_EPS = 1e-6
 
 
-def group_norm(ngroups: int, channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(ngroups, channels, eps=GN_EPS)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` computed in the parameters' dtype and cast back to
+    the input's (a no-op where the two agree)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.to(self.weight.dtype), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+def group_norm(ngroups: int, channels: int) -> GroupNorm:
+    return GroupNorm(ngroups, channels, eps=GN_EPS)
 
 
 class BasicBlock(nn.Module):
@@ -28,16 +55,16 @@ class BasicBlock(nn.Module):
                  downsample: bool = False):
         super().__init__()
         self.convs = nn.Sequential(
-            nn.Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False),
+            Conv2d(inplanes, planes, 3, stride=stride, padding=1, bias=False),
             group_norm(ngroups, planes),
             nn.ReLU(True),
-            nn.Conv2d(planes, planes, 3, padding=1, bias=False),
+            Conv2d(planes, planes, 3, padding=1, bias=False),
             group_norm(ngroups, planes),
         )
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
+                Conv2d(inplanes, planes, 1, stride=stride, bias=False),
                 group_norm(ngroups, planes),
             )
         self.relu = nn.ReLU(True)
@@ -55,7 +82,7 @@ class GNResNet(nn.Module):
                  layers=(2, 2, 2, 2)):
         super().__init__()
         self.conv1 = nn.Sequential(
-            nn.Conv2d(in_channels, base_planes, 7, stride=2, padding=3, bias=False),
+            Conv2d(in_channels, base_planes, 7, stride=2, padding=3, bias=False),
             group_norm(ngroups, base_planes),
             nn.ReLU(True),
         )

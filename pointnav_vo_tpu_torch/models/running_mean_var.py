@@ -9,7 +9,9 @@ the JAX module does: one shifted-data pass (per-sample spatial means of
 ``x - c`` and ``(x - c)^2``, ``c`` the running mean) gives the batch mean
 and variance, Chan's formula merges them, and the output is normalised with
 the updated buffers.  The buffers change under ``torch.no_grad()``: the
-output depends on no parameter.
+output depends on no parameter.  Both run in the buffers' dtype (float32,
+or float64 for a reference run) whatever the input's; ``dtype`` casts the
+output (bfloat16 compute, as the JAX module's ``dtype``).
 """
 
 from __future__ import annotations
@@ -50,9 +52,12 @@ class RunningMeanAndVar(nn.Module):
         self._count.copy_(tot)
 
     def forward(self, x: torch.Tensor, update_stats: bool = False,
-                stats_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                stats_mask: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """x: ``[B, C, H, W]``; ``stats_mask`` ``[B]`` picks the samples that
-        feed the statistics (all of them when it is None)."""
+        feed the statistics (all of them when it is None); the output is in
+        ``dtype``, the buffers' where it is None."""
         if update_stats:
             self._update(x, stats_mask)
-        return (x - self._mean) / torch.sqrt(torch.clamp(self._var, min=1e-2))
+        y = (x.to(self._mean.dtype) - self._mean) / torch.sqrt(torch.clamp(self._var, min=1e-2))
+        return y if dtype is None else y.to(dtype)

@@ -15,6 +15,12 @@ top-down view, the previous frame's blocks first (see
 ``vo/ensemble.py::pack_frame_features``).  The features are flattened in
 CHW order, as the reference's checkpoints expect.
 
+``compute_dtype`` is the JAX modules' ``dtype``: with ``torch.bfloat16`` the
+whitening runs in float32 and emits bfloat16, the convs, GroupNorm outputs,
+dropout and linear layers run in bfloat16 over float32 parameters, and the
+delta comes out in float32.  ``None`` computes in the parameters' dtype
+(float32, or float64 for a reference run).
+
 Only the deployed variant ``vo_cnn_rgb_d_dd_top_down`` is built here.
 """
 
@@ -24,6 +30,7 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from pointnav_vo_tpu_torch.common import DELTA_DIM
@@ -48,8 +55,10 @@ class VOEncoder(nn.Module):
     """Observation-pair encoder: whitening -> backbone -> compression conv."""
 
     def __init__(self, observation_space: Sequence[str], observation_size: Tuple[int, int],
-                 discretized_depth_channels: int = 0):
+                 discretized_depth_channels: int = 0,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         obs = tuple(observation_space)
         c = 0
         c += RGB_PAIR_CHANNEL if "rgb" in obs else 0
@@ -67,7 +76,7 @@ class VOEncoder(nn.Module):
                                             ngroups=BASEPLANES // 2)
         ch = self.output_shape[0]
         self.compression = nn.Sequential(
-            nn.Conv2d(self.backbone.final_channels, ch, 3, padding=1, bias=False),
+            resnet_lib.Conv2d(self.backbone.final_channels, ch, 3, padding=1, bias=False),
             resnet_lib.group_norm(1, ch),
             nn.ReLU(True),
         )
@@ -78,9 +87,9 @@ class VOEncoder(nn.Module):
         if packed.shape[-1] != self.input_channels:
             raise ValueError(f"packed stem input has {packed.shape[-1]} channels, "
                              f"expected {self.input_channels}")
-        # the module's own dtype: float32, or float64 for a reference run
-        x = packed.to(self.running_mean_and_var._mean.dtype).permute(0, 3, 1, 2)
-        x = self.running_mean_and_var(x, update_stats, stats_mask)
+        rmv = self.running_mean_and_var
+        dtype = self.compute_dtype or rmv._mean.dtype
+        x = rmv(packed.permute(0, 3, 1, 2), update_stats, stats_mask, dtype=dtype)
         return self.compression(self.backbone(x))
 
 
@@ -95,11 +104,12 @@ class VOCNN(nn.Module):
     the key positions only; :meth:`trunk` applies the keep masks itself."""
 
     def __init__(self, observation_space, observation_size, hidden_size: int = 512,
-                 discretized_depth_channels: int = 0, dropout_p: float = DROPOUT_P):
+                 discretized_depth_channels: int = 0, dropout_p: float = DROPOUT_P,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout_p = dropout_p
         self.visual_encoder = VOEncoder(observation_space, observation_size,
-                                        discretized_depth_channels)
+                                        discretized_depth_channels, compute_dtype)
         self.flat_size = math.prod(self.visual_encoder.output_shape)
         self.hidden_size = hidden_size
         self.visual_fc = nn.Sequential(
@@ -108,18 +118,29 @@ class VOCNN(nn.Module):
         self.output_head = nn.Sequential(nn.Dropout(dropout_p),
                                          nn.Linear(hidden_size, DELTA_DIM))
 
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        return self.visual_encoder.compute_dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
+        self.visual_encoder.compute_dtype = dtype
+
     def trunk(self, feats: torch.Tensor, masks: Optional[DropoutMasks] = None) -> torch.Tensor:
         """Flat features ``[n, flat]`` -> delta ``[..., n, 3]``.  ``masks``
         (keep masks ``[..., n, flat]`` and ``[..., n, hidden]``) switch the
         dropout on; a leading pass axis ``[k, n, ...]`` runs the k passes as
         one batched product, each pass computed alike, so equal masks give
-        equal passes."""
+        equal passes.  It computes in the features' dtype (the masks scale
+        in it, as flax's dropout does) and returns at least float32."""
         fc, head = self.visual_fc[2], self.output_head[1]
         if masks is None:
-            return head(torch.relu(fc(feats)))
-        keep = 1.0 - self.dropout_p
-        x = torch.relu(_linear(fc, feats * (masks[0].float() / keep)))
-        return _linear(head, x * (masks[1].float() / keep))
+            out = _linear(head, torch.relu(_linear(fc, feats)))
+        else:
+            keep = 1.0 - self.dropout_p
+            x = torch.relu(_linear(fc, feats * (masks[0].to(feats.dtype) / keep)))
+            out = _linear(head, x * (masks[1].to(feats.dtype) / keep))
+        return out.to(torch.promote_types(out.dtype, torch.float32))
 
     def forward(self, packed: torch.Tensor, update_stats: bool = False,
                 stats_mask: Optional[torch.Tensor] = None,
@@ -135,13 +156,14 @@ class VOCNN(nn.Module):
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``layer(x)``; for ``[k, n, d]`` input a batched product over k (a
-    plain ``layer`` folds k into the rows of one GEMM, whose rows may round
-    apart)."""
+    """``layer(x)`` in ``x``'s dtype; for ``[k, n, d]`` input a batched
+    product over k (a plain ``layer`` folds k into the rows of one GEMM,
+    whose rows may round apart)."""
+    w, b = layer.weight.to(x.dtype), layer.bias.to(x.dtype)
     if x.dim() == 2:
-        return layer(x)
+        return F.linear(x, w, b)
     k, n = x.shape[:2]
-    return torch.baddbmm(layer.bias.expand(k, n, -1), x, layer.weight.t().expand(k, -1, -1))
+    return torch.baddbmm(b.expand(k, n, -1), x, w.t().expand(k, -1, -1))
 
 
 def draw_dropout_masks(generator: torch.Generator, lead: Tuple[int, ...], flat: int,
@@ -166,7 +188,8 @@ VO_MODEL_NAMES = tuple(_VARIANTS)
 def make_vo_model(name: str, *, observation_space: Sequence[str],
                   observation_size: Tuple[int, int], hidden_size: int = 512,
                   discretized_depth_channels: int = 10,
-                  dropout_p: float = DROPOUT_P) -> VOCNN:
+                  dropout_p: float = DROPOUT_P,
+                  compute_dtype: Optional[torch.dtype] = None) -> VOCNN:
     """Build a registered VO variant by its reference name."""
     if name not in _VARIANTS:
         raise ValueError(f"VO variant {name!r} is not ported; have {tuple(_VARIANTS)}")
@@ -174,4 +197,5 @@ def make_vo_model(name: str, *, observation_space: Sequence[str],
     if set(obs) != set(_VARIANTS[name]):
         raise ValueError(f"{name} needs observation_space {_VARIANTS[name]}, got {obs}")
     return VOCNN(obs, tuple(observation_size), hidden_size,
-                 discretized_depth_channels=discretized_depth_channels, dropout_p=dropout_p)
+                 discretized_depth_channels=discretized_depth_channels, dropout_p=dropout_p,
+                 compute_dtype=compute_dtype)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import resolve_device
+from pointnav_vo_tpu_torch.io.checkpoint import generator_state, restore_generator
 from pointnav_vo_tpu_torch.io.weights import (
     POLICY_PREFIX,
     policy_state_dict_from_container,
@@ -211,21 +212,18 @@ class DDPPOTrainer:
         return {
             "state_dict": {POLICY_PREFIX + k: v for k, v in self.model.state_dict().items()},
             "optimizer": self.optimizer.state_dict(),
-            "generator": {"device": self.device.type, "state": self.generator.get_state()},
+            "generator": generator_state(self.generator),
             "count_steps": self.count_steps,
             "update_idx": self.update_idx,
         }
 
-    def load_checkpoint_state(self, state: Mapping) -> None:
-        """Restore :meth:`checkpoint_state`; the generator's state only
-        loads on a device of the type that saved it."""
+    def load_checkpoint_state(self, state: Mapping, seed: int) -> None:
+        """Restore :meth:`checkpoint_state` on any device type; a generator
+        state saved on another type seeds the generator afresh from
+        ``seed`` (``io.checkpoint.restore_generator``)."""
         self.model.load_state_dict(policy_state_dict_from_container(state), strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
-        gen = state["generator"]
-        if gen["device"] != self.device.type:
-            raise ValueError(f"generator state saved on {gen['device']}, trainer on "
-                             f"{self.device.type}: resume on the device that saved it")
-        self.generator.set_state(gen["state"])
+        restore_generator(self.generator, state["generator"], seed)
         self.count_steps = int(state["count_steps"])
         self.update_idx = int(state["update_idx"])
 

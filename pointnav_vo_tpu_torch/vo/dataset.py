@@ -1,5 +1,5 @@
 """VO frame-pair datasets, host side (counterpart of ``vo/dataset.py``;
-scripted dataset generation is not ported).
+HDF5 dataset generation is not ported).
 
 - :class:`FramePairReader` streams the reference's chunked HDF5 schema
   (``chunk_{k}`` groups: rgb uint8 and depth float16 flattened, global
@@ -9,6 +9,10 @@ scripted dataset generation is not ported).
   from the global poses (:func:`inverse_delta_from_global`).  A batch made
   wholly of adjacent (primary, swapped) twins ships each entry's pixels
   once (``FramePairBatch.twins_packed``); the device expands them.
+- :class:`MemoryFramePairs` rolls a scripted env (a follower such as
+  :func:`oracle_goal_follower`, or any action rule) into frame pairs held
+  in memory, with the reader's batch interface: training where ``h5py`` is
+  missing.
 - :class:`PrefetchingLoader` hides the decode behind device work on a
   thread.
 
@@ -20,7 +24,7 @@ top-down projection run on the device in the train step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,6 +32,7 @@ from pointnav_vo_tpu_torch.common import (
     CUR_REL_TO_PREV,
     MOVE_FORWARD,
     PREV_REL_TO_CUR,
+    STOP,
     TURN_LEFT,
     TURN_RIGHT,
     quat_canonical,
@@ -286,6 +291,124 @@ class FramePairReader:
             entry_idx=np.asarray(entry_is, np.int32),
             twins_packed=twins_packed,
         )
+
+
+def oracle_goal_follower(turn_angle_deg: float, success_distance: float):
+    """``f(env, obs, rng) -> action``: turn toward the goal until roughly
+    facing it, else move forward; STOP within the success distance (JAX
+    ``vo/dataset.py::oracle_goal_follower``)."""
+    turn_rad = np.radians(turn_angle_deg)
+
+    def follower(env, obs, rng=None) -> int:
+        bearing = -obs["pointgoal_with_gps_compass"][1]
+        if env.dist_to_goal < success_distance:
+            return STOP
+        if abs(bearing) > turn_rad / 2:
+            return TURN_LEFT if bearing < 0 else TURN_RIGHT
+        return MOVE_FORWARD
+
+    return follower
+
+
+class MemoryFramePairs:
+    """Frame pairs held in memory, with the reader interface the training
+    engine takes (``iter_batches``, ``num_samples``).  An entry is (prev
+    rgb uint8, prev depth float16, cur rgb, cur depth, action, global
+    poses), as the HDF5 schema stores them.  With ``twins`` each entry also
+    yields its swapped twin right after it (the opposite turn, its target
+    from the global poses), and a batch of whole twins ships each entry's
+    frames once."""
+
+    def __init__(self, entries: List[Tuple], twins: bool = False):
+        self.entries = entries
+        self.twins = twins
+
+    @classmethod
+    def scripted(cls, n: int, action_fn: Callable, seed: int, twins: bool = False,
+                 env_cfg=None) -> "MemoryFramePairs":
+        """``n`` steps of a scripted env (``rl.envs.EnvConfig`` ``env_cfg``,
+        the default one where None) under ``action_fn(env, obs, rng)``; a
+        STOP ends the episode unrecorded, as the JAX package's dataset
+        generation does."""
+        from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
+
+        env = ScriptedPointNavEnv(env_cfg or EnvConfig(), seed=seed)
+        rng = np.random.default_rng(seed)
+        obs, entries = env.reset(), []
+        while len(entries) < n:
+            a = int(action_fn(env, obs, rng))
+            if a == STOP:
+                obs = env.reset()
+                continue
+            pos0, rot0 = env.global_pose()
+            new, _r, done, _i = env.step(a)
+            pos1, rot1 = env.global_pose()
+            entries.append((obs["rgb"].astype(np.uint8), obs["depth"].astype(np.float16),
+                            new["rgb"].astype(np.uint8), new["depth"].astype(np.float16),
+                            a, (pos0, rot0, pos1, rot1)))
+            obs = env.reset() if done else new
+        return cls(entries, twins)
+
+    def subset(self, actions: Sequence[int], twins: bool = False) -> "MemoryFramePairs":
+        """The entries of the given actions (sharing their frames), as the
+        HDF5 reader's ``act_type`` filter picks them."""
+        return MemoryFramePairs([e for e in self.entries if e[4] in tuple(actions)], twins)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def num_samples(self) -> int:
+        return len(self.entries) * (2 if self.twins else 1)
+
+    def _samples(self, order):
+        for e in order:
+            _pr, _pd, _cr, _cd, a, (pos0, rot0, pos1, rot1) = self.entries[e]
+            # cur relative to prev; the twin: prev relative to cur
+            yield e, False, a, inverse_delta_from_global(rot1, pos1, rot0, pos0)
+            if self.twins:
+                flipped = TURN_RIGHT if a == TURN_LEFT else TURN_LEFT
+                yield e, True, flipped, inverse_delta_from_global(rot0, pos0, rot1, pos1)
+
+    def iter_batches(self, batch_size: int, rng: Optional[np.random.Generator] = None,
+                     drop_last: bool = False) -> Iterator[FramePairBatch]:
+        """One epoch, the entries shuffled by ``rng`` (a sample and its twin
+        stay adjacent)."""
+        order = np.arange(len(self.entries))
+        if rng is not None:
+            order = rng.permutation(order)
+        pending = []
+        for sample in self._samples(order):
+            pending.append(sample)
+            if len(pending) == batch_size:
+                yield self._assemble(pending)
+                pending = []
+        if pending and not drop_last:
+            yield self._assemble(pending)
+
+    def _assemble(self, items) -> FramePairBatch:
+        packed = (self.twins and len(items) % 2 == 0
+                  and all(not items[k][1] and items[k + 1][1]
+                          for k in range(0, len(items), 2)))
+        pix = {"prev_rgb": [], "prev_depth": [], "cur_rgb": [], "cur_depth": []}
+        for e, swapped, _a, _d in items:
+            if packed and swapped:
+                continue  # packed twins: each entry's frames once
+            prev_rgb, prev_d, cur_rgb, cur_d = self.entries[e][:4]
+            if swapped:
+                prev_rgb, prev_d, cur_rgb, cur_d = cur_rgb, cur_d, prev_rgb, prev_d
+            for k, v in zip(pix, (prev_rgb, prev_d, cur_rgb, cur_d)):
+                pix[k].append(v)
+        n = len(items)
+        return FramePairBatch(
+            **{k: np.stack(v) for k, v in pix.items()},
+            actions=np.asarray([it[2] for it in items], np.int32),
+            gt_delta=np.stack([it[3] for it in items]).astype(np.float32),
+            data_types=np.asarray([PREV_REL_TO_CUR if it[1] else CUR_REL_TO_PREV
+                                   for it in items], np.int32),
+            dz_regress_mask=np.ones(n, np.float32),
+            chunk_idx=np.zeros(n, np.int32),
+            entry_idx=np.asarray([it[0] for it in items], np.int32),
+            twins_packed=packed)
 
 
 class PrefetchingLoader:

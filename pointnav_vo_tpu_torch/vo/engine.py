@@ -45,7 +45,9 @@ from pointnav_vo_tpu_torch.common import (
 )
 from pointnav_vo_tpu_torch.io.checkpoint import (
     AsyncCheckpointWriter,
+    generator_state,
     load_checkpoint,
+    restore_generator,
     rng_state_bundle,
     save_checkpoint,
 )
@@ -55,6 +57,7 @@ from pointnav_vo_tpu_torch.vo import losses as losses_lib
 from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader
 from pointnav_vo_tpu_torch.vo.ensemble import (
     VOInferenceConfig,
+    check_compute_dtype,
     preprocess_obs_pairs,
     preprocess_obs_pairs_packed,
     preprocess_obs_pairs_twins_packed,
@@ -252,7 +255,8 @@ class VORegressionEngine:
     """Train/eval engine.  ``device=None`` means the card.  Pass ``experts``
     (modules) or ``state_dicts`` (one per trained action, in
     ``tcfg.expert_actions`` order), or neither for weights drawn from
-    ``tcfg.seed``."""
+    ``tcfg.seed``.  The experts compute in ``icfg``'s precision; their
+    parameters, gradients and Adam state stay in the parameters' dtype."""
 
     def __init__(self, icfg: VOInferenceConfig, tcfg: VOTrainConfig,
                  train_reader=None, eval_reader=None, device=None,
@@ -275,6 +279,7 @@ class VORegressionEngine:
         if len(experts) != n_experts:
             raise ValueError(f"need {n_experts} experts for action_type "
                              f"{tcfg.action_type!r}, got {len(experts)}")
+        check_compute_dtype(experts, icfg)
         self.experts: List[VOCNN] = [m.to(self.device) for m in experts]
         params = [p for m in self.experts for p in m.parameters()]
         for p in params:  # zero, never None: every expert steps every time
@@ -396,7 +401,7 @@ class VORegressionEngine:
             "inference_config": dataclasses.asdict(self.icfg),
             "experts": [m.state_dict() for m in self.experts],
             "optimizer": self.opt.state_dict(),
-            "generator": self.generator.get_state(),
+            "generator": generator_state(self.generator),
             "host_rng": rng_state_bundle(),
         }
 
@@ -411,12 +416,22 @@ class VORegressionEngine:
         else:
             save_checkpoint(path, state)
 
-    def load_ckpt(self, path: str) -> Dict:
+    def load_experts(self, path: str) -> Dict:
+        """The experts (weights and whitening statistics) of a checkpoint,
+        as eval needs them: the optimizer and the generator stay as they
+        are."""
         state = load_checkpoint(path)
         for m, sd in zip(self.experts, state["experts"], strict=True):
             m.load_state_dict(sd, strict=True)
+        return state
+
+    def load_ckpt(self, path: str) -> Dict:
+        """Resume from :meth:`checkpoint_state` on any device type; a
+        generator state saved on another type seeds the generator afresh
+        from ``tcfg.seed`` (``io.checkpoint.restore_generator``)."""
+        state = self.load_experts(path)
         self.opt.load_state_dict(state["optimizer"])
-        self.generator.set_state(state["generator"])
+        restore_generator(self.generator, state["generator"], self.tcfg.seed)
         self.epoch = state["epoch"]
         return state
 
@@ -430,7 +445,7 @@ class VORegressionEngine:
             self.tcfg.batch_size, rng=np.random.default_rng(0), drop_last=True)))
         frames = [torch.from_numpy(np.ascontiguousarray(getattr(batch, k)[:1])).to(self.device)
                   for k in ("prev_rgb", "prev_depth", "cur_rgb", "cur_depth")]
-        return {k: v[0].cpu().numpy() for k, v in
+        return {k: v[0].float().cpu().numpy() for k, v in
                 preprocess_obs_pairs(*frames, self.icfg).items()}
 
     def train(self, ckpt_dir: Optional[str] = None, eval_every: int = 1,

@@ -14,6 +14,13 @@ passes.  Dropout sits on the FC trunk only, so rnd mode runs each expert's
 encoder once and its trunk once for all passes.  The whitening statistics
 stay frozen in both modes.
 
+Two precisions, as ``VOInferenceConfig.dtype`` there: ``precision="bf16"``
+emits the features and runs the experts in bfloat16 (parameters, whitening
+statistics and the deltas stay float32).  ``cache_dtype="int8"`` stores the
+packed features as int8 (every channel lies in [0, 1]; scale 127, rounded
+and clipped), and each expert's rows are dequantized into the compute dtype
+after the selection.  The selection is ``index_select`` in every dtype.
+
 The pair functions (:func:`preprocess_obs_pairs` and the twin-expanding
 :func:`preprocess_obs_pairs_twins`, each with a ``_packed`` form) assemble
 the training batches of ``vo/engine.py``.
@@ -41,7 +48,7 @@ from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
 
 @dataclasses.dataclass(frozen=True)
 class VOInferenceConfig:
-    """Static configuration of the fp32 VO inference path."""
+    """Static configuration of the VO inference path."""
 
     model_name: str = "vo_cnn_rgb_d_dd_top_down"
     observation_space: Tuple[str, ...] = ("rgb", "depth", "discretized_depth",
@@ -56,10 +63,28 @@ class VOInferenceConfig:
     dropout_p: float = DROPOUT_P
     mode: str = "det"  # "det" | "rnd"
     rnd_mode_n: int = 10
+    # a string, not a torch.dtype: the config is stored in checkpoints
+    precision: str = "fp32"  # "fp32" | "bf16"
+    cache_dtype: str = "native"  # "native" (the compute dtype) | "int8"
 
     def __post_init__(self):
         if self.mode not in ("det", "rnd"):
             raise ValueError(f"mode must be 'det' or 'rnd', got {self.mode!r}")
+        if self.precision not in ("fp32", "bf16"):
+            raise ValueError(f"precision must be 'fp32' or 'bf16', got {self.precision!r}")
+        if self.cache_dtype not in ("native", "int8"):
+            raise ValueError(f"cache_dtype must be 'native' or 'int8', got {self.cache_dtype!r}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The features' and the experts' compute dtype."""
+        return torch.bfloat16 if self.precision == "bf16" else torch.float32
+
+    @property
+    def model_dtype(self) -> Optional[torch.dtype]:
+        """``VOCNN.compute_dtype``: bfloat16, or None (the parameters' own
+        dtype: float32, or float64 for a reference run)."""
+        return torch.bfloat16 if self.precision == "bf16" else None
 
     @property
     def topdown_params(self) -> TopDownParams:
@@ -75,13 +100,16 @@ class VOInferenceConfig:
             hidden_size=self.hidden_size,
             discretized_depth_channels=self.discretized_depth_channels,
             dropout_p=self.dropout_p,
+            compute_dtype=self.model_dtype,
         )
 
 
 def frame_features(rgb: torch.Tensor, depth: torch.Tensor,
                    cfg: VOInferenceConfig) -> Dict[str, torch.Tensor]:
     """Per-frame channels: rgb ``[B,H,W,3]``, depth ``[B,H,W,1]``,
-    discretized_depth ``[B,H,W,dd]``, top_down_view ``[B,H,W,1]``."""
+    discretized_depth ``[B,H,W,dd]``, top_down_view ``[B,H,W,1]``; computed
+    in float32 (the top-down counts binned, then normalised), emitted in
+    the compute dtype."""
     rgb = rgb.float()
     depth = depth.float()
     feats: Dict[str, torch.Tensor] = {}
@@ -95,7 +123,7 @@ def frame_features(rgb: torch.Tensor, depth: torch.Tensor,
     if "top_down_view" in cfg.observation_space:
         feats["top_down_view"] = top_down_view_batch(
             depth[..., 0], cfg.topdown_params)[..., None]
-    return feats
+    return {k: v.to(cfg.dtype) for k, v in feats.items()}
 
 
 # stem channel order of the VO encoder: per frame rgb/255, depth,
@@ -103,25 +131,39 @@ def frame_features(rgb: torch.Tensor, depth: torch.Tensor,
 _PACK_ORDER = ("rgb", "depth", "discretized_depth", "top_down_view")
 
 
-def pack_frame_features(feats: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """One ``[B, H, W, C]`` block in stem channel order, rgb scaled by 1/255
-    (a true division: a device tensor, not a host scalar, see
-    ``ops/topdown.py::pixel_bins``)."""
+def pack_frame_features(feats: Mapping[str, torch.Tensor],
+                        cfg: VOInferenceConfig) -> torch.Tensor:
+    """One ``[B, H, W, C]`` block in stem channel order in the compute
+    dtype, rgb scaled by 1/255 in it (a true division: a device tensor, not
+    a host scalar, see ``ops/topdown.py::pixel_bins``); with
+    ``cache_dtype="int8"``, ``clip(round(x * 127), 0, 127)`` as int8."""
     parts = []
     for k in _PACK_ORDER:
         if k in feats:
-            v = feats[k].float()
+            v = feats[k].to(cfg.dtype)
             if k == "rgb":
                 v = v / v.new_tensor(255.0)
             parts.append(v)
-    return torch.cat(parts, dim=-1)
+    pack = torch.cat(parts, dim=-1)
+    if cfg.cache_dtype == "int8":
+        pack = torch.clamp(torch.round(pack.float() * 127.0), 0, 127).to(torch.int8)
+    return pack
+
+
+def dequantize_rows(rows: torch.Tensor, cfg: VOInferenceConfig) -> torch.Tensor:
+    """Selected rows of a packed cache as the experts' input: an int8 cache
+    times 1/127, both in the compute dtype; any other cache as it is."""
+    if rows.dtype != torch.int8:
+        return rows
+    # a 0-dim host tensor: a scalar operand, no upload
+    return rows.to(cfg.dtype) * torch.tensor(1.0 / 127.0, dtype=cfg.dtype)
 
 
 def frame_features_packed(rgb: torch.Tensor, depth: torch.Tensor,
                           cfg: VOInferenceConfig) -> torch.Tensor:
     """Per-frame packed stem block: ``cat(prev_pack, cur_pack)`` is the
     encoder's stem input."""
-    return pack_frame_features(frame_features(rgb, depth, cfg))
+    return pack_frame_features(frame_features(rgb, depth, cfg), cfg)
 
 
 def pair_from_features(prev_feats: Mapping[str, torch.Tensor],
@@ -170,6 +212,16 @@ def preprocess_obs_pairs_twins_packed(prev_rgb, prev_depth, cur_rgb, cur_depth,
     return _twin_expand(torch.cat([fp, fc], dim=-1), torch.cat([fc, fp], dim=-1))
 
 
+def check_compute_dtype(experts: Sequence[VOCNN], cfg: VOInferenceConfig) -> None:
+    """Refuse modules whose ``compute_dtype`` is not ``cfg.model_dtype``:
+    the caller decides an expert's precision when it builds the module
+    (``cfg.make_model()``), and nothing changes it afterwards."""
+    for m in experts:
+        if m.compute_dtype != cfg.model_dtype:
+            raise ValueError(f"an expert computes in {m.compute_dtype}, the config's "
+                             f"precision {cfg.precision!r} needs {cfg.model_dtype}")
+
+
 def expert_rows(actions_np) -> list:
     """Per expert, the host row indices of the samples it runs.  STOP and
     any id outside 1..3 clip into the nearest expert (STOP -> forward)."""
@@ -194,7 +246,8 @@ class VOEnsemble:
                  state_dicts: Sequence[Mapping[str, torch.Tensor]] = None,
                  device=None, experts: Sequence[VOCNN] = None):
         """Pass ``state_dicts`` (one per expert, in VO_EXPERT_ACTIONS order;
-        loaded with ``strict=True``) or ready ``experts`` modules."""
+        loaded with ``strict=True``) or ready ``experts`` modules built for
+        ``cfg``'s precision (:func:`check_compute_dtype`)."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if experts is None:
@@ -205,6 +258,7 @@ class VOEnsemble:
                 m = cfg.make_model()
                 m.load_state_dict(sd, strict=True)
                 experts.append(m)
+        check_compute_dtype(experts, cfg)
         self.experts = [m.to(self.device).eval() for m in experts]
 
     @classmethod
@@ -221,15 +275,16 @@ class VOEnsemble:
 
     @torch.no_grad()
     def predict_packed(self, obs_pairs: torch.Tensor, actions_np) -> torch.Tensor:
-        """Det delta ``[B, 3]`` of packed pairs ``[B, H, W, 2C]``; each sample
-        runs the expert of its host action."""
+        """Det delta ``[B, 3]`` (float32) of packed pairs ``[B, H, W, 2C]``;
+        each sample runs the expert of its host action."""
         out = torch.zeros((obs_pairs.shape[0], 3), dtype=torch.float32,
                           device=obs_pairs.device)
         for expert, rows in zip(self.experts, expert_rows(actions_np)):
             if rows.size == 0:
                 continue
             idx = torch.from_numpy(rows).to(obs_pairs.device)
-            out.index_copy_(0, idx, expert(obs_pairs.index_select(0, idx)).float())
+            sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
+            out.index_copy_(0, idx, expert(sub).float())
         return out
 
     def draw_masks(self, generator: torch.Generator, batch: int) -> DropoutMasks:
@@ -258,7 +313,8 @@ class VOEnsemble:
             if rows.size == 0:
                 continue
             idx = torch.from_numpy(rows).to(obs_pairs.device)
-            feats = expert.visual_encoder(obs_pairs.index_select(0, idx)).flatten(1)
+            sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
+            feats = expert.visual_encoder(sub).flatten(1)
             own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
             samples.index_copy_(1, idx, expert.trunk(feats, own).float())
         return pass_mean_std(samples)
@@ -268,7 +324,7 @@ class VOEnsemble:
                             cur_depth: torch.Tensor, actions_np):
         """Steady-state det step: features of the new frame only, paired with
         the cached previous ones.  Returns (delta ``[B, 3]``, cur_feats);
-        feed ``cur_feats`` back on the next call."""
+        feed ``cur_feats`` (in the cache's dtype) back on the next call."""
         if self.cfg.mode != "det":
             raise ValueError("predict_step_cached is the det step; rnd mode runs "
                              "predict_rnd_packed")

@@ -44,8 +44,10 @@ from pointnav_vo_tpu_torch.config.defaults import get_rl_config, get_vo_config
 from pointnav_vo_tpu_torch.io.checkpoint import (
     AsyncCheckpointWriter,
     UnreadableCheckpointError,
+    generator_state,
     latest_checkpoint,
     load_checkpoint,
+    restore_generator,
     restore_rng_state,
     rng_state_bundle,
     save_checkpoint,
@@ -380,6 +382,49 @@ def test_rl_resume_continues_at_saved_update(rl_train_run, tmp_path):
     assert names == ["ckpt_1.update_1.frames_24.pth", "ckpt_2.update_2.frames_32.pth"]
 
 
+def _cuda_generator_state(path, out, bare=False):
+    """``path`` with its generator entry replaced by a 16-byte state of a
+    CUDA generator (one saved on the card), written to ``out``."""
+    state = load_checkpoint(path)
+    cuda_state = torch.zeros(16, dtype=torch.uint8)
+    state["generator"] = cuda_state if bare else {"device": "cuda", "state": cuda_state}
+    save_checkpoint(str(out), state)
+    return str(out)
+
+
+def test_restore_generator_across_device_types(caplog):
+    """A CPU generator does not take a CUDA generator's 16-byte state: it is
+    seeded afresh from the given seed instead, with one log line."""
+    with pytest.raises(RuntimeError):
+        torch.Generator().set_state(torch.zeros(16, dtype=torch.uint8))
+    fresh = torch.Generator().manual_seed(9)
+    for saved in ({"device": "cuda", "state": torch.zeros(16, dtype=torch.uint8)},
+                  torch.zeros(16, dtype=torch.uint8)):
+        g = torch.Generator().manual_seed(1)
+        torch.rand(3, generator=g)
+        with caplog.at_level(logging.WARNING):
+            assert not restore_generator(g, saved, seed=9)
+        assert torch.equal(g.get_state(), fresh.get_state())
+    assert sum("seeded afresh from 9" in r.getMessage() for r in caplog.records) == 2
+    g = torch.Generator().manual_seed(4)
+    saved = generator_state(g)
+    want = torch.rand(5, generator=g)
+    assert restore_generator(g, saved, seed=9) and torch.equal(torch.rand(5, generator=g), want)
+
+
+def test_rl_resume_across_device_types(rl_train_run, tmp_path):
+    """A checkpoint whose generator state came from the card resumes on the
+    CPU at its stored update and env steps."""
+    src = os.path.join(rl_train_run["ckpt_dir"], "ckpt_1.update_1.frames_16.pth")
+    ckpt = _cuda_generator_state(src, tmp_path / "card.pth")
+    opts = rl_train_run["opts"] + ["NUM_UPDATES", "2", "RESUME_TRAIN", "True",
+                                   "RESUME_STATE_FILE", ckpt]
+    trainer = _cli(trun.main, tmp_path, "rl", "train", opts, port=True)
+    assert trainer.update_idx == 2 and trainer.count_steps == 16 + 8
+    names = os.listdir(os.path.join(_last_run(tmp_path, "rl-train"), "checkpoints"))
+    assert names == ["ckpt_1.update_1.frames_24.pth"]
+
+
 def test_rl_preemption_saves_interrupted_state_and_returns(rl_train_run, tmp_path,
                                                            monkeypatch):
     monkeypatch.setattr(preemption, "INTERRUPTED_STATE_DIR", str(tmp_path / "interrupted"))
@@ -409,7 +454,6 @@ def _raises_not_ported(fn):
 
 
 _RL_UNPORTED = {
-    "bf16": ["VO.REGRESS_MODEL.precision", "bf16"],
     "classical_vo": ["VO.VO_TYPE", "CLASSICAL"],
     "gru": ["RL.Policy.rnn_backbone", "GRU"],
     "baseline_policy": ["RL.Policy.name", "pointnav_baseline_policy"],
@@ -428,7 +472,6 @@ def test_unported_rl_option_raises(name, weights, tmp_path):
 
 
 _VO_UNPORTED = {
-    "bf16_training": ["VO.TRAIN.precision", "bf16"],
     "log_grad": ["VO.TRAIN.log_grad", "True"],
     "decode_workers": ["VO.TRAIN.decode_workers", "2"],
 }
@@ -506,6 +549,29 @@ def test_vo_cli_eval_from_checkpoint_matches_jax(vo_runs):
     state = load_checkpoint(vo_runs["port"]["ckpt"])
     assert state["engine_name"] == "vo_cnn_regression_geo_invariance_engine"
     assert state["full_config"]["VO"]["MODEL"]["hidden_size"] == HIDDEN and state["epoch"] == 1
+
+
+@pytest.mark.parametrize("bare", [False, True])
+def test_vo_resume_across_device_types(vo_runs, tmp_path, bare):
+    """The VO checkpoint with a card's generator state (beside its device
+    type, or bare) resumes on the CPU at its stored epoch."""
+    ckpt = _cuda_generator_state(vo_runs["port"]["ckpt"], tmp_path / "ckpt_epoch_1.pth", bare)
+    engine = _cli(trun.main, tmp_path, "vo", "train",
+                  ["RESUME_TRAIN", "True", "RESUME_STATE_FILE", ckpt, "VO.TRAIN.epochs", "2"],
+                  port=True)
+    assert engine.epoch == 2
+    assert int(engine.opt.state_dict()["state"][0]["step"]) == 2 * int(
+        load_checkpoint(ckpt)["optimizer"]["state"][0]["step"])
+
+
+def test_vo_eval_across_device_types(vo_runs, tmp_path):
+    """Eval from that checkpoint loads the experts only: the same metrics as
+    eval from the untouched file."""
+    ckpt = _cuda_generator_state(vo_runs["port"]["ckpt"], tmp_path / "ckpt_epoch_1.pth")
+    data = load_checkpoint(ckpt)["full_config"]["VO"]["DATASET"]["EVAL_WITH_NOISE"]
+    metrics = _cli(trun.main, tmp_path, "vo", "eval",
+                   ["EVAL.EVAL_CKPT_PATH", ckpt, "VO.DATASET.EVAL_WITH_NOISE", data], port=True)
+    assert metrics == vo_runs["port"]["eval"]
 
 
 def test_port_vo_checkpoint_loads_as_an_expert(vo_runs):
