@@ -91,9 +91,27 @@ Phases, each printing a line; any failure exits non-zero:
 10. the 994-episode protocol at a smoke size
    (``pointnav_vo_tpu_torch/examples/eval_994.py``): three bf16 experts
    trained for one epoch on 600 oracle-follower pairs held in memory,
-   then ``Evaluator.run`` of 32 distinct episodes over 32 envs with the
-   greedy goal policy (a 30-step cap), ``bin_counts`` launched exactly
-   once per step plus one.
+   then ``Evaluator.run`` of 32 distinct episodes over the shm env farm
+   (32 worker processes) with the greedy goal policy (a 30-step cap),
+   ``bin_counts`` launched exactly once per step plus one;
+11. the evaluator's host side at full width (phase 3's seeded fp32 models,
+   32 envs, a 20-step cap): the host's CPU count and affinity, its
+   ``/dev/shm`` size and the rings' bytes; (a) ``Evaluator.run`` in
+   process, over ``ShmVectorEnv`` (32 forked workers, made after the card
+   is in use) and over it with ``PNVO_EVAL_ASYNC=1``: the farm runs'
+   aggregates and per-episode results equal the in-process run's (bit for
+   bit but the payload's float32 ``spl``/``softspl``/``distance_to_goal``,
+   equal after rounding, and the episode id it does not carry), steps + 1
+   launches each, every worker exits 0, none of the farm's own
+   ``/dev/shm`` segments left, ``time_env_s`` of the three side by side,
+   and the in-process run again beside an idle 32-worker farm (its workers
+   polling their rings), equal results, its ``time_device_s`` beside the
+   others; (b) GPS-only (``vo_ensemble=None``): finite metrics, no launch; (c) unfused
+   (``fused=False``): the fused run's trajectories, exactly 2 launches a
+   step, one unfused step within rtol 1e-3 / atol 1e-4 of the fused step
+   and of the CPU's (actions equal); (d) eval videos and ranked images
+   composed on the card's run, written with ``cv2`` where the machine has
+   it (else a line says the writers are held on the CPU only).
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -154,6 +172,9 @@ BF16_TENSOR_FLOOR = 5e-2
 E994_PAIRS, E994_EVAL_PAIRS, E994_EPOCHS = 600, 64, 1  # phase 10
 E994_EPISODES, E994_CAP = 32, 30
 BF16_EVAL_CAP = 10  # phase 3 in bf16: the episode cap of its Evaluator.run
+FARM_CAP = 20  # phase 11: phase 3's episode cap
+FARM_SLOTS = 4  # payloads a worker's ring holds (ShmVectorEnv's default)
+FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1435,9 +1456,9 @@ def phase_cli(dev, card):
             step_calls[0] += 1
             return real_step(self, actions)
 
-        def counted_run(self, num_episodes):
+        def counted_run(self, num_episodes, **kw):
             before, calls = tk.launch_counts["bin_counts"], step_calls[0]
-            out = real_run(self, num_episodes)
+            out = real_run(self, num_episodes, **kw)
             runs.append((tk.launch_counts["bin_counts"] - before, step_calls[0] - calls, out))
             return out
 
@@ -1589,9 +1610,9 @@ def phase_agent(dev, card):
 
 def phase_eval_994(dev, card):
     """The 994-episode protocol's script at a smoke size: bf16 experts
-    trained in memory, then an exact set of distinct episodes with
-    ``bin_counts`` launched exactly once per step plus one (checked by
-    ``run_protocol``)."""
+    trained in memory, then an exact set of distinct episodes on the shm
+    env farm with ``bin_counts`` launched exactly once per step plus one
+    (checked by ``run_protocol``)."""
     import torch
 
     from pointnav_vo_tpu_torch.examples import eval_994
@@ -1618,7 +1639,7 @@ def phase_eval_994(dev, card):
         raise AssertionError(f"994 smoke: non-finite metrics {agg}")
     _log("994", f"trained 3 bf16 experts in {train_s:.1f} s (bin_counts launches "
                 f"{train_launches}); Evaluator.run of {E994_EPISODES} episodes over {N_ENVS} "
-                f"envs (cap {E994_CAP}): wall {run['wall_s']:.3f} s, {run['loop_steps']} loop "
+                f"envs ({eval_994.BACKENDS['shm']}, cap {E994_CAP}): wall {run['wall_s']:.3f} s, {run['loop_steps']} loop "
                 f"steps, {run['distinct_episodes']} distinct episodes, bin_counts launches "
                 f"{run['bin_counts_launches']} (steps + 1), success {agg['success']:.3f}, spl "
                 f"{agg['spl']:.3f}, vo_l2 {agg.get('vo_l2_mean', float('nan')):.4f}, "
@@ -1626,6 +1647,309 @@ def phase_eval_994(dev, card):
                 f"{agg['time_device_s']:.3f} on {card}")
     return {"train_s": train_s, "train_launches": train_launches, "train": train,
             **{k: v for k, v in run.items()}}
+
+
+def _host_lines(env_cfg, slots):
+    """The host's CPUs, its /dev/shm and the farm's ring bytes."""
+    from pointnav_vo_tpu_torch.native.shm_env import ring_bytes
+
+    st = os.statvfs("/dev/shm")
+    host = {"cpu_count": os.cpu_count(), "affinity": len(os.sched_getaffinity(0)),
+            "dev_shm_bytes": st.f_blocks * st.f_frsize, "dev_shm_free_bytes":
+            st.f_bavail * st.f_frsize, "ring_bytes": ring_bytes(env_cfg, N_ENVS, slots)}
+    _log("farm", f"host: os.cpu_count() {host['cpu_count']}, affinity {host['affinity']} "
+                 f"CPUs; /dev/shm {host['dev_shm_bytes']} B ({host['dev_shm_free_bytes']} B "
+                 f"free); {N_ENVS} workers x {slots} slots of rings: {host['ring_bytes']} B")
+    return host
+
+
+def _farm_run(dev, envs, vo, policy, n_episodes, **kw):
+    """One ``Evaluator.run`` with the launch counts set to 0 just before it;
+    closes ``envs`` and, for a farm, checks that its workers exited 0 and
+    that none of its own ``/dev/shm`` segments is left (other processes on
+    the machine may hold farms of their own)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples.eval_994 import CountedSteps
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator
+
+    run = {k: kw.pop(k) for k in ("video_dir", "video_episodes", "ranked_img_dir",
+                                  "rank_top_k", "tb_writer") if k in kw}
+    counted = CountedSteps(envs)  # counts the loop steps
+    ev = Evaluator(model=policy, envs=counted, vo_ensemble=vo, device=dev, **kw)
+    procs = list(getattr(envs, "_procs", []))
+    prefix = getattr(envs, "_prefix", None)
+    try:
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        agg = ev.run(n_episodes, **run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tk.launch_counts["bin_counts"]
+    finally:
+        t0 = time.perf_counter()
+        envs.close()
+        close_s = time.perf_counter() - t0
+    if [p.exitcode for p in procs] != [0] * len(procs):
+        raise AssertionError(f"farm workers exited {[p.exitcode for p in procs]}")
+    left = glob.glob(f"/dev/shm{prefix}_*") if prefix else []
+    if left:
+        raise AssertionError(f"shm segments left after close: {left}")
+    if agg["episodes"] != n_episodes or len(ev.results) != n_episodes:
+        raise AssertionError(f"expected exactly {n_episodes} episodes, got {agg['episodes']}")
+    bad = [k for k, v in agg.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"non-finite aggregates: {bad}")
+    return {"agg": agg, "results": [dataclasses.asdict(r) for r in ev.results],
+            "launches": launches, "loop_steps": counted.calls, "wall_s": wall,
+            "close_s": close_s}
+
+
+# the float64 metrics of the in-process env that the farm's float32 payload rounds
+_FARM_ROUNDED = ("spl", "softspl", "distance_to_goal")
+
+
+def _farm_vs_sync(got, want, what, exact=False):
+    """A farm run against the in-process run: every aggregate and
+    per-episode field equal, except the payload's float32 metrics (equal
+    after rounding the in-process value to float32; their means within rtol
+    1e-6) and the episode id (the payload carries none: -1).  ``exact``:
+    two in-process runs, every field equal."""
+    for k, v in want["agg"].items():
+        g = got["agg"][k]
+        if k.startswith("time_"):
+            continue
+        if k in _FARM_ROUNDED and not exact:
+            if not np.isclose(g, v, rtol=1e-6, atol=0):
+                raise AssertionError(f"{what}: {k} {g} against {v}")
+        elif g != v:
+            raise AssertionError(f"{what}: {k} {g} against {v} (expected bit-equal)")
+    for i, (a, b) in enumerate(zip(got["results"], want["results"], strict=True)):
+        for k, v in b.items():
+            if k == "episode_id" and not exact:
+                ok = a[k] == -1
+            elif k in _FARM_ROUNDED and not exact:
+                ok = np.float32(a[k]) == np.float32(v)
+            else:
+                ok = a[k] == v or (np.isnan(a[k]) and np.isnan(v))
+            if not ok:
+                raise AssertionError(f"{what}: episode {i} {k} {a[k]} against {v}")
+
+
+class _FrameSink:
+    """A TensorBoard writer that keeps the eval videos' frames."""
+
+    def __init__(self):
+        self.videos = []
+
+    def add_video_from_np_images(self, name, step, images, fps=10):
+        self.videos.append((name, np.stack(images)))
+
+
+def phase_farm(dev, card):
+    """Phase 11: the evaluator's host side at full width over the shm env
+    farm (32 forked workers, made after the card is in use): (a) phase 3's
+    det fp32 eval in process, on the farm and on the farm with the overlap,
+    equal results, steps + 1 launches each; (b) GPS-only, no launch; (c)
+    unfused, 2 launches a step, its step held against the fused step and
+    the CPU; (d) eval videos and ranked images composed on the card's run,
+    written with cv2 where the machine has it."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.eval import fused_vo_act_step
+    from pointnav_vo_tpu_torch.rl.trainer import act_step, propagate_goal
+    from pointnav_vo_tpu_torch.vis import maps
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    n = N_ENVS
+    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED)  # phase 3's models
+    env_cfg = EnvConfig(image_h=H, image_w=W, max_episode_steps=FARM_CAP)
+    host = _host_lines(env_cfg, FARM_SLOTS)
+
+    def farm():
+        t0 = time.perf_counter()
+        envs = ShmVectorEnv(env_cfg, n, seed=SEED, slots=FARM_SLOTS)
+        return envs, time.perf_counter() - t0
+
+    # (a) in process, the farm, the farm with the overlap
+    runs = {"sync": _farm_run(dev, make_scripted_vector_env(env_cfg, n, seed=SEED), vo,
+                              policy, n)}
+    starts = {}
+    for name, overlap in (("shm", "0"), ("shm_async", "1")):
+        old = os.environ.get("PNVO_EVAL_ASYNC")
+        os.environ["PNVO_EVAL_ASYNC"] = overlap
+        try:
+            envs, starts[name] = farm()
+            runs[name] = _farm_run(dev, envs, vo, policy, n)
+        finally:
+            if old is None:
+                os.environ.pop("PNVO_EVAL_ASYNC")
+            else:
+                os.environ["PNVO_EVAL_ASYNC"] = old
+    # the in-process run again beside an idle farm, its 32 workers polling
+    # their action rings: how much of the farm's extra time_device_s their
+    # polling costs the evaluator's process
+    idle, _ = farm()
+    idle_procs, idle_prefix = list(idle._procs), idle._prefix
+    try:
+        idle.reset()
+        runs["sync_idle"] = _farm_run(dev, make_scripted_vector_env(env_cfg, n, seed=SEED),
+                                      vo, policy, n)
+    finally:
+        idle.close()
+    if [p.exitcode for p in idle_procs] != [0] * n or glob.glob(f"/dev/shm{idle_prefix}_*"):
+        raise AssertionError("the idle farm did not close cleanly")
+    for name, r in runs.items():
+        if r["launches"] != r["loop_steps"] + 1:
+            raise AssertionError(f"{name}: bin_counts launched {r['launches']} times over "
+                                 f"{r['loop_steps']} steps; expected steps + 1")
+        if name != "sync":
+            _farm_vs_sync(r, runs["sync"], name, exact=name == "sync_idle")
+            if r["loop_steps"] != runs["sync"]["loop_steps"]:
+                raise AssertionError(f"{name}: {r['loop_steps']} loop steps against "
+                                     f"{runs['sync']['loop_steps']}")
+    timing = {name: {k: r["agg"][k] for k in ("time_env_s", "time_device_s",
+                                                "time_transfer_s")}
+              | {"wall_s": r["wall_s"], "loop_steps": r["loop_steps"],
+                 "env_ms_per_step": 1e3 * r["agg"]["time_env_s"] / r["loop_steps"]}
+              for name, r in runs.items()}
+    _log("farm", f"(a) det fp32 Evaluator.run, {n} episodes, cap "
+                 f"{FARM_CAP}: the farm's and the overlap's aggregates and per-episode results "
+                 "equal the in-process run's (spl/softspl/distance_to_goal after float32 "
+                 f"rounding, the payload's); launches {runs['sync']['launches']} / "
+                 f"{runs['shm']['launches']} / {runs['shm_async']['launches']} (steps + 1); "
+                 f"farm start {starts['shm']:.3f} / {starts['shm_async']:.3f} s, close "
+                 f"{runs['shm']['close_s']:.3f} / {runs['shm_async']['close_s']:.3f} s, workers "
+                 "exited 0, none of their /dev/shm segments left; sync_idle: the in-process "
+                 f"run beside an idle {n}-worker farm, results equal to sync")
+    for name in runs:
+        t = timing[name]
+        _log("farm", f"  {name:9s}: time_env_s {t['time_env_s']:.4f} ({t['env_ms_per_step']:.3f} "
+                     f"ms a step), time_device_s {t['time_device_s']:.4f}, time_transfer_s "
+                     f"{t['time_transfer_s']:.4f}, wall {t['wall_s']:.4f} s over "
+                     f"{t['loop_steps']} steps on {card}")
+
+    # (b) GPS-only
+    envs, _ = farm()
+    gps = _farm_run(dev, envs, None, policy, n)
+    if gps["launches"] != 0 or "vo_l2_mean" in gps["agg"]:
+        raise AssertionError(f"GPS-only eval: {gps['launches']} launches, {gps['agg']}")
+    _log("farm", f"(b) GPS-only: {gps['loop_steps']} steps, 0 bin_counts launches, success "
+                 f"{gps['agg']['success']:.3f}, time_act_s {gps['agg']['time_act_s']:.4f}, "
+                 f"time_env_s {gps['agg']['time_env_s']:.4f}")
+
+    # (c) unfused: the run, then one step against the fused step and the CPU
+    envs, _ = farm()
+    unfused = _farm_run(dev, envs, vo, policy, n, fused=False)
+    if unfused["launches"] != 2 * unfused["loop_steps"]:
+        raise AssertionError(f"unfused: bin_counts launched {unfused['launches']} times over "
+                             f"{unfused['loop_steps']} steps; expected 2 a step")
+    same = [r["steps"] for r in unfused["results"]] == [r["steps"] for r in runs["shm"]["results"]]
+    if not same:
+        raise AssertionError("unfused and fused runs took other trajectories")
+    for k in ("vo_l2_mean", "global_drift_mean", "success", "spl"):
+        if not np.isclose(unfused["agg"][k], runs["shm"]["agg"][k], rtol=1e-3, atol=1e-4):
+            raise AssertionError(f"unfused {k} {unfused['agg'][k]} against fused "
+                                 f"{runs['shm']['agg'][k]}")
+
+    probe = make_scripted_vector_env(env_cfg, n, seed=SEED + 1)
+    obs0 = probe.reset()
+    rng = np.random.default_rng(SEED)
+    actions = np.where(rng.uniform(size=n) < 0.7, 1, rng.integers(2, 4, n)).astype(np.int64)
+    obs1 = probe.step(actions)[0]
+
+    def unfused_step(d, ens, pol):
+        a = _fused_inputs(obs0, obs1, actions, d, cfg, pol)
+        prev_rgb = torch.as_tensor(np.asarray(obs0["rgb"], np.uint8), device=d)
+        prev_depth = torch.as_tensor(obs0["depth"], device=d)
+        delta, std, _ = ens.compute_local_delta_states_from_vo(
+            prev_rgb, prev_depth, a["cur_rgb"], a["cur_depth"], actions)
+        goal, polar = propagate_goal(a["goal_cart"], delta, a["reset_mask"], a["sensor_polar"])
+        obs = {"rgb": a["cur_rgb"], "depth": a["cur_depth"], "pointgoal_with_gps_compass": polar}
+        _v, action, _lp, hidden = act_step(pol, obs, a["hidden"], a["prev_actions"], a["masks"])
+        return {"delta": delta, "std": std, "goal_cart": goal, "polar": polar,
+                "action": action, "hidden": hidden}
+
+    def vs(got, want, what):
+        errs = {}
+        for k, w in want.items():
+            g = got[k].cpu()
+            w = w.cpu()
+            errs[k] = float((g.double() - w.double()).abs().max())
+            if k == "action":
+                if not torch.equal(g, w):
+                    raise AssertionError(f"{what}: actions differ")
+            elif not torch.allclose(g, w, rtol=1e-3, atol=1e-4):
+                raise AssertionError(f"{what}: {k} max abs err {errs[k]}")
+        return errs
+
+    with torch.no_grad():
+        got = unfused_step(dev, vo, policy)
+        fused = fused_vo_act_step(policy, vo, **_fused_inputs(obs0, obs1, actions, dev, cfg,
+                                                              policy))
+        fused_out = dict(zip(("goal_cart", "polar", "delta", "std", "value", "action", "logp",
+                              "hidden"), fused))
+        vs_fused = vs(got, {k: fused_out[k] for k in got}, "unfused vs fused step")
+        vs_cpu = vs(got, unfused_step(torch.device("cpu"), cpu_vo, cpu_policy),
+                    "unfused step, card vs CPU")
+        step_ms = _time_ms(lambda: unfused_step(dev, vo, policy), iters=10)
+    _log("farm", f"(c) unfused: {unfused['loop_steps']} steps, {unfused['launches']} "
+                 "bin_counts launches (2 a step), the fused run's trajectories; one step "
+                 f"{step_ms:.4f} ms (CUDA events, inputs built inside) vs the fused step "
+                 "(rtol 1e-3, atol 1e-4, actions equal): " + json.dumps(vs_fused, sort_keys=True)
+                 + "; vs the CPU (the same bounds): " + json.dumps(vs_cpu, sort_keys=True))
+
+    # (d) videos and ranked images composed on the card's run
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    sink, ranked = _FrameSink(), []
+    save_ranked = maps.save_ranked_error_images
+    with tempfile.TemporaryDirectory() as tmp:
+        run_kw = dict(video_episodes=FARM_VIDEOS, rank_top_k=FARM_RANK_TOP_K, tb_writer=sink,
+                      ranked_img_dir=os.path.join(tmp, "ranked"))
+        if has_cv2:
+            run_kw["video_dir"] = os.path.join(tmp, "videos")
+        else:  # keep the records the writer would have written
+            maps.save_ranked_error_images = lambda recs, *a, **k: ranked.extend(recs)
+        try:
+            envs, _ = farm()
+            # two episodes an env: env 0 ends at least FARM_VIDEOS of its own
+            vid = _farm_run(dev, envs, vo, policy, FARM_VIDEOS * n, **run_kw)
+        finally:
+            maps.save_ranked_error_images = save_ranked
+        written = {}
+        if has_cv2:
+            written = {d: sorted(os.listdir(os.path.join(tmp, d)))
+                       for d in ("videos", "ranked")}
+            ranked = written["ranked"]
+    if len(sink.videos) != FARM_VIDEOS or not ranked:
+        raise AssertionError(f"(d): {len(sink.videos)} videos, {len(ranked)} ranked records")
+    if vid["launches"] != vid["loop_steps"] + 1:
+        raise AssertionError(f"(d): {vid['launches']} launches over {vid['loop_steps']} steps")
+    shapes = sorted({v.shape for _, v in sink.videos})
+    _log("farm", f"(d) {len(sink.videos)} eval videos composed ([rgb | map] frames "
+                 f"{shapes}), {vid['launches']} launches (steps + 1); "
+                 + (f"cv2 wrote {written}" if has_cv2 else
+                    f"{len(ranked)} ranked records composed; cv2 is missing on this machine: "
+                    "the mp4 and PNG writers are held on the CPU only "
+                    "(tests/test_torch_port_vis.py)"))
+    return {"host": host, "timing": timing, "farm_start_s": starts,
+            "launches": {name: r["launches"] for name, r in runs.items()}
+            | {"gps_only": gps["launches"], "unfused": unfused["launches"],
+               "video_ranked": vid["launches"]},
+            "loop_steps": {name: r["loop_steps"] for name, r in runs.items()}
+            | {"unfused": unfused["loop_steps"]},
+            "unfused_vs_fused": vs_fused, "unfused_vs_cpu": vs_cpu, "unfused_step_ms": step_ms,
+            "gps_only": {k: gps["agg"][k] for k in ("success", "spl", "time_act_s",
+                                                     "time_env_s")},
+            "cv2": has_cv2, "metrics": runs["shm"]["agg"]}
+
 
 
 def main() -> int:
@@ -1660,6 +1984,7 @@ def main() -> int:
     cli = timed("cli", phase_cli, dev, card)
     agent = timed("agent", phase_agent, dev, card)
     e994 = timed("eval_994", phase_eval_994, dev, card)
+    farm = timed("farm", phase_farm, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -1669,7 +1994,13 @@ def main() -> int:
                "cli_train_rl": cli["train"]["launches"], "cli_eval": cli["eval"]["launches"],
                "cli_resume": cli["resume"]["launches"], "agent": agent["launches"],
                "eval_994_train": e994["train_launches"],
-               "eval_994": e994["bin_counts_launches"]}
+               "eval_994": e994["bin_counts_launches"],
+               "farm_det_eval_sync": farm["launches"]["sync"],
+               "farm_det_eval_shm": farm["launches"]["shm"],
+               "farm_det_eval_shm_async": farm["launches"]["shm_async"],
+               "farm_gps_only_eval": farm["launches"]["gps_only"],
+               "farm_unfused_eval": farm["launches"]["unfused"],
+               "farm_video_ranked_eval": farm["launches"]["video_ranked"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -1697,6 +2028,7 @@ def main() -> int:
         "cli": cli,
         "agent": agent,
         "eval_994": e994,
+        "farm": farm,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

@@ -7,10 +7,11 @@ library (``vo/engine.py``, ``rl/trainer.py``, ``rl/eval.py``):
 - ``vo_cnn_regression_geo_invariance_engine``: supervised VO training and
   eval with per-epoch checkpoints, resume, and the eval config read back
   out of the checkpoint;
-- ``efficient_ddppo`` / ``ppo``: PPO training over the scripted vector
-  envs with optional VO in the loop, checkpoints every
+- ``efficient_ddppo`` / ``ppo``: PPO training over the vector envs of
+  ``ENV_BACKEND`` (scripted in process, the scripted shm farm, or habitat
+  workers) with optional VO in the loop, checkpoints every
   ``CHECKPOINT_INTERVAL`` updates, resume, preemption, and the
-  checkpoint-sweep eval driver.
+  checkpoint-sweep eval driver with its videos and ranked images.
 
 Every engine runs on ``device`` (``None``: the card).  RL checkpoints are
 the reference's ``.pth`` container (``state_dict`` with the
@@ -47,7 +48,11 @@ from pointnav_vo_tpu_torch.io.weights import (
 )
 from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
 from pointnav_vo_tpu_torch.models.vo_cnn import VO_MODEL_NAMES, make_vo_model
-from pointnav_vo_tpu_torch.rl.envs import env_config_from_task, make_scripted_vector_env
+from pointnav_vo_tpu_torch.rl.envs import (
+    env_config_from_task,
+    make_habitat_vector_env,
+    make_scripted_vector_env,
+)
 from pointnav_vo_tpu_torch.rl.eval import Evaluator
 from pointnav_vo_tpu_torch.rl.ppo import PPOConfig
 from pointnav_vo_tpu_torch.rl.trainer import DDPPOTrainer
@@ -98,15 +103,21 @@ def make_baseline_policy(config: Config):
 
 @registry.register_env(name="NavRLEnv")
 def make_nav_rl_env(config: Config, num_envs: int, seed: int = 0, noisy: bool = True):
-    """PointNav vector env configured from the task tree; ``ENV_BACKEND``
-    "sync" loops scripted envs in-process."""
+    """PointNav vector env configured from the task tree.  ``ENV_BACKEND``
+    selects the fan-out: "sync" loops scripted envs in process, "shm"
+    forks scripted process workers over the shared-memory rings, "habitat"
+    forks habitat-sim workers."""
     backend = config.get("ENV_BACKEND", "sync")
-    if backend in ("shm", "habitat"):
-        raise not_ported(f"ENV_BACKEND {backend!r}", "1-7")
+    if backend == "habitat":
+        return make_habitat_vector_env(config, num_envs, seed=seed, noisy=noisy)
+    env_cfg = env_config_from_task(config, noisy=noisy, seed=seed)
+    if backend == "shm":
+        from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
+
+        return ShmVectorEnv(env_cfg, num_envs, seed=seed)
     if backend != "sync":
         raise ValueError(f"unknown ENV_BACKEND {backend!r} (sync | shm | habitat)")
-    return make_scripted_vector_env(env_config_from_task(config, noisy=noisy), num_envs,
-                                    seed=seed)
+    return make_scripted_vector_env(env_cfg, num_envs, seed=seed)
 
 
 # ---------------------------------------------------------------------------
@@ -517,13 +528,8 @@ class _BaseRLEngine:
             envs.close()
 
     def _eval_ckpt_with_envs(self, cfg, ckpt_path, num_episodes, envs):
-        if "disk" in cfg.get("VIDEO_OPTION", []):
-            raise not_ported("VIDEO_OPTION 'disk' (eval videos)", "1-7")
-        if cfg.EVAL.get("SAVE_RANKED_IMGS"):
-            raise not_ported("EVAL.SAVE_RANKED_IMGS (ranked error images)", "1-7")
+        # None without VO.USE_VO_MODEL: the policy reads the GPS sensor
         vo = _build_vo_ensemble(cfg, self.device)
-        if vo is None:
-            raise not_ported("RL eval without a VO model (the GPS-only evaluator)", "1-7")
         if ckpt_path and os.path.isfile(ckpt_path):
             sd = policy_state_dict_from_container(load_checkpoint(ckpt_path))
             self.model.load_state_dict(sd, strict=True)
@@ -534,8 +540,13 @@ class _BaseRLEngine:
                               generator=torch.Generator(device=self.device).manual_seed(cfg.SEED))
         n = num_episodes or (cfg.EVAL.TEST_EPISODE_COUNT
                              if cfg.EVAL.TEST_EPISODE_COUNT > 0 else 100)
+        video_episodes = 3 if "disk" in cfg.get("VIDEO_OPTION", []) else 0
+        ranked_dir = (os.path.join(cfg.INFO_DIR, "ranked_imgs")
+                      if cfg.EVAL.get("SAVE_RANKED_IMGS") else None)
         t0 = time.perf_counter()
-        metrics = evaluator.run(n)
+        metrics = evaluator.run(n, video_dir=cfg.get("VIDEO_DIR") if video_episodes else None,
+                                video_episodes=video_episodes, ranked_img_dir=ranked_dir,
+                                rank_top_k=cfg.EVAL.get("RANK_TOP_K", 20))
         metrics["wall_clock_s"] = time.perf_counter() - t0
         save_info_dict({k: [v] for k, v in metrics.items()},
                        os.path.join(cfg.INFO_DIR, "eval_infos.p"))

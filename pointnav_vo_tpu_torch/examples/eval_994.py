@@ -3,6 +3,7 @@
     python -m pointnav_vo_tpu_torch.examples.eval_994 --out EVAL_994_torch.json
     python -m pointnav_vo_tpu_torch.examples.eval_994 --episodes 64 --pairs 1000 \\
         --epochs 1 --out smoke.json                                   # smoke size
+    python -m pointnav_vo_tpu_torch.examples.eval_994 --backend sync --out sync.json
 
 Phase 1 trains the three VO experts at full width (341x192) on scripted
 frame pairs held in memory (``vo.dataset.MemoryFramePairs``; no HDF5): the
@@ -11,14 +12,18 @@ on its forward pairs, then the joint turn stage (inverse loss over twins)
 on its turns, ``--epochs`` epochs each at batch 128, in ``--precision``.
 Its cost is reported apart from the eval's.
 
-Phase 2 runs one ``Evaluator.run(--episodes)`` over ``--envs`` synchronous
-scripted envs (in this process) with det VO through the fused step in
-``--precision`` with a ``--cache-dtype`` feature cache, a goal-greedy
-policy that acts on the dead-reckoned goal only (:class:`GreedyGoalPolicy`)
-and a 120-step cap.  It checks that exactly ``--episodes`` distinct
-episodes ran and, on the card, that ``bin_counts`` launched exactly once
-per loop step plus once for the first frame.  The record, with the fields
-of ``EVAL_994.json``, goes to ``--out``.
+Phase 2 runs one ``Evaluator.run(--episodes)`` over ``--envs`` scripted
+envs, by default on the shm env farm (``native/shm_env.py``: one forked
+worker process per env, seed 777), with ``--backend sync`` in this process,
+with det VO through the fused step in ``--precision`` with a
+``--cache-dtype`` feature cache, a goal-greedy policy that acts on the
+dead-reckoned goal only (:class:`GreedyGoalPolicy`) and a 120-step cap.
+``PNVO_EVAL_ASYNC=1`` overlaps the envs' simulation with the evaluator's
+host work.  It checks that the evaluator counted exactly ``--episodes``
+distinct episodes, that each env finished at least its budget and, on the
+card, that ``bin_counts`` launched exactly once per loop step plus once
+for the first frame.  The record, with the fields of ``EVAL_994.json``
+and the backend, goes to ``--out``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import time
 from typing import Dict, Tuple
@@ -36,6 +42,7 @@ from torch import nn
 
 from pointnav_vo_tpu_torch.common import MOVE_FORWARD, TURN_LEFT, TURN_RIGHT, resolve_device
 from pointnav_vo_tpu_torch.ops import topdown_kernels
+from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
 from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
 from pointnav_vo_tpu_torch.rl.eval import Evaluator, episode_budgets
 from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs, oracle_goal_follower
@@ -113,54 +120,87 @@ def train_experts(icfg: VOInferenceConfig, env_cfg: EnvConfig, pairs: int, eval_
     return experts, record
 
 
-class _CountedSteps:
-    """A vector env's step, counted, with the first ``budget[i]`` finished
-    episode ids of each env (the set the evaluator must count)."""
+BACKENDS = {"shm": "shm process workers (scripted world)",
+            "sync": "sync scripted envs in one process"}
 
-    def __init__(self, envs, budgets):
-        self.envs, self.budgets = envs, budgets
+
+class CountedSteps:
+    """A vector env whose loop steps (``step``, or ``step_async`` then
+    ``step_wait``) are counted, with each env's finished episodes."""
+
+    def __init__(self, envs):
+        self.envs = envs
+        self.num_envs = envs.num_envs
         self.calls = 0
-        self.finished = [[] for _ in budgets]
-        self._step = envs.step
-        envs.step = self.step
+        self.finished = np.zeros(envs.num_envs, np.int64)
 
-    def step(self, actions):
+    def reset(self):
+        return self.envs.reset()
+
+    def number_of_episodes(self):
+        return self.envs.number_of_episodes()
+
+    def _count(self, out):
         self.calls += 1
-        out = self._step(actions)
-        for i, (done, info) in enumerate(zip(out[2], out[3])):
-            if done and len(self.finished[i]) < self.budgets[i]:
-                self.finished[i].append(int(info["episode_id"]))
+        self.finished += out[2]
         return out
 
-    def distinct(self) -> int:
-        return sum(len(set(ids)) for ids in self.finished)
+    def step(self, actions):
+        return self._count(self.envs.step(actions))
+
+    def step_async(self, actions):
+        self.envs.step_async(actions)
+
+    def step_wait(self):
+        return self._count(self.envs.step_wait())
+
+
+def make_envs(env_cfg: EnvConfig, n_envs: int, backend: str):
+    if backend == "shm":
+        return ShmVectorEnv(env_cfg, n_envs, seed=777)
+    if backend != "sync":
+        raise ValueError(f"unknown backend {backend!r} (shm | sync)")
+    return make_scripted_vector_env(env_cfg, n_envs, seed=777)
 
 
 def run_protocol(ensemble: VOEnsemble, env_cfg: EnvConfig, episodes: int, n_envs: int,
-                 device) -> Dict:
-    """One ``Evaluator.run(episodes)`` with the greedy policy; checks the
-    distinct-episode count and, on the card, the launch count."""
+                 device, backend: str = "shm", log=None) -> Dict:
+    """One ``Evaluator.run(episodes)`` with the greedy policy over the
+    ``backend``'s envs (``log`` sees the progress); checks the distinct
+    episodes and, on the card, the launch count."""
     dev = resolve_device(device)
-    envs = make_scripted_vector_env(env_cfg, n_envs, seed=777)
-    budgets, _ = episode_budgets(episodes, n_envs, envs.number_of_episodes())
-    counted = _CountedSteps(envs, budgets)
-    policy = GreedyGoalPolicy(env_cfg.turn_angle_deg, env_cfg.success_distance)
-    ev = Evaluator(model=policy, envs=envs, vo_ensemble=ensemble, device=dev,
-                   generator=torch.Generator(device=dev).manual_seed(3))
-    topdown_kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    agg = ev.run(episodes)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall_s = time.perf_counter() - t0
+    envs = make_envs(env_cfg, n_envs, backend)
+    try:
+        budgets, _ = episode_budgets(episodes, n_envs, envs.number_of_episodes())
+        counted = CountedSteps(envs)
+        policy = GreedyGoalPolicy(env_cfg.turn_angle_deg, env_cfg.success_distance)
+        ev = Evaluator(model=policy, envs=counted, vo_ensemble=ensemble, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(3))
+
+        def progress(k, _result):
+            if log and (k % 50 == 0 or k == episodes):
+                el = time.perf_counter() - t0
+                log(f"  {k}/{episodes} episodes | {el / 60:.2f} min | projected "
+                    f"{el / k * episodes / 60:.2f} min")
+
+        topdown_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        agg = ev.run(episodes, log_fn=progress)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall_s = time.perf_counter() - t0
+    finally:
+        envs.close()
     launches = topdown_kernels.launch_counts["bin_counts"]
+    distinct = len(set(ev.episode_keys))
     out = {"metrics": {k: float(v) for k, v in agg.items()}, "wall_s": wall_s,
-           "loop_steps": counted.calls, "distinct_episodes": counted.distinct(),
+           "loop_steps": counted.calls, "distinct_episodes": distinct,
            "bin_counts_launches": launches if dev.type == "cuda" else None}
-    if (agg["episodes"] != episodes or len(ev.results) != episodes
-            or counted.distinct() != episodes):
-        raise AssertionError(f"expected {episodes} distinct episodes: evaluator counted "
-                             f"{agg['episodes']}, the envs finished {counted.distinct()}")
+    if (agg["episodes"] != episodes or len(ev.results) != episodes or distinct != episodes
+            or (counted.finished < np.asarray(budgets)).any()):
+        raise AssertionError(f"expected {episodes} distinct episodes: the evaluator counted "
+                             f"{agg['episodes']} ({distinct} distinct keys); the envs "
+                             f"finished {counted.finished.tolist()} against budgets {budgets}")
     if dev.type == "cuda" and launches != counted.calls + 1:
         raise AssertionError(f"bin_counts launched {launches} times over {counted.calls} "
                              "loop steps; expected steps + 1")
@@ -187,6 +227,8 @@ def main(argv=None) -> Dict:
     ap.add_argument("--max-episode-steps", type=int, default=120)
     ap.add_argument("--precision", choices=("fp32", "bf16"), default="bf16")
     ap.add_argument("--cache-dtype", choices=("native", "int8"), default="native")
+    ap.add_argument("--backend", choices=sorted(BACKENDS), default="shm",
+                    help="shm: one worker process per env (default); sync: in this process")
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--out", required=True, help="the JSON record's path")
     args = ap.parse_args(argv)
@@ -203,17 +245,22 @@ def main(argv=None) -> Dict:
                                           args.epochs, args.batch, dev,
                                           log=lambda m: print(m, flush=True))
     ensemble = VOEnsemble(icfg, experts=experts, device=dev)
-    print(f"evaluating {args.episodes} episodes over {args.envs} scripted envs at "
+    overlap = os.environ.get("PNVO_EVAL_ASYNC", "0") == "1"
+    print(f"evaluating {args.episodes} episodes over {args.envs} scripted envs "
+          f"({BACKENDS[args.backend]}{', async overlap' if overlap else ''}) at "
           f"{env_cfg.image_w}x{env_cfg.image_h}, det VO in {args.precision}, "
           f"{args.cache_dtype} cache ...", flush=True)
-    run = run_protocol(ensemble, env_cfg, args.episodes, args.envs, dev)
+    run = run_protocol(ensemble, env_cfg, args.episodes, args.envs, dev, args.backend,
+                       log=lambda m: print(m, flush=True))
     agg = run["metrics"]
     out = {
         "protocol": "exact-episode-set (per-env budgets, distinct keys)",
-        "env_step_protocol": "synchronous",
+        "env_step_protocol": "async overlap" if overlap else "synchronous",
         "episodes": args.episodes,
         "envs": args.envs,
-        "backend": "sync scripted envs in one process",
+        "backend": BACKENDS[args.backend],
+        "host_cpus": os.cpu_count(),
+        "host_cpus_usable": len(os.sched_getaffinity(0)),
         "resolution": [env_cfg.image_h, env_cfg.image_w],
         "max_episode_steps": args.max_episode_steps,
         "vo": f"det, fused step, 3 trained experts, {args.precision}",

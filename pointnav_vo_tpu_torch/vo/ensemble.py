@@ -319,6 +319,32 @@ class VOEnsemble:
             samples.index_copy_(1, idx, expert.trunk(feats, own).float())
         return pass_mean_std(samples)
 
+    def predict(self, obs_pairs: torch.Tensor, actions_np,
+                generator: Optional[torch.Generator] = None):
+        """(delta, std) ``[B, 3]`` of packed pairs ``[B, H, W, 2C]``, each
+        sample through the expert of its host action: det mode's std is
+        zero; rnd mode draws its keep masks from ``generator``."""
+        if self.cfg.mode == "det":
+            delta = self.predict_packed(obs_pairs, actions_np)
+            return delta, torch.zeros_like(delta)
+        return self.predict_rnd_packed(obs_pairs, actions_np, generator)
+
+    @torch.no_grad()
+    def compute_local_delta_states_from_vo(self, prev_rgb, prev_depth, cur_rgb, cur_depth,
+                                           actions_np, generator=None):
+        """The reference's public API batched over the envs, both frames'
+        features computed here (the unfused eval path: two ``bin_counts``
+        launches).  Returns (delta, std, ``{"ego_top_down_view": [B, H, W,
+        2]}``), the view None where the config has no top-down channel."""
+        prev = frame_features(prev_rgb, prev_depth, self.cfg)
+        cur = frame_features(cur_rgb, cur_depth, self.cfg)
+        obs = torch.cat([pack_frame_features(prev, self.cfg),
+                         pack_frame_features(cur, self.cfg)], dim=-1)
+        delta, std = self.predict(obs, actions_np, generator)
+        tdv = (torch.cat([prev["top_down_view"], cur["top_down_view"]], dim=-1)
+               if "top_down_view" in prev else None)
+        return delta, std, {"ego_top_down_view": tdv}
+
     @torch.no_grad()
     def predict_step_cached(self, prev_feats: torch.Tensor, cur_rgb: torch.Tensor,
                             cur_depth: torch.Tensor, actions_np):

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import fake_habitat
 from pointnav_vo_tpu import run as jrun
 from pointnav_vo_tpu.config.defaults import get_rl_config as j_rl_config
 from pointnav_vo_tpu.config.defaults import get_vo_config as j_vo_config
@@ -291,15 +292,17 @@ def _eval_outputs(run_dir, stem):
     return agg, episodes
 
 
-def _assert_eval_matches(got, want):
+def _assert_eval_matches(got, want, vo=True):
     """``test_evaluator_run_matches_jax``'s rules: exact counts, success
-    and spl; rtol 1e-4 on the float metrics; equal per-episode steps."""
+    and spl; rtol 1e-4 on the float metrics (the VO ones too where a VO
+    ran); equal per-episode steps."""
     (gagg, geps), (wagg, weps) = got, want
     assert set(gagg) == set(wagg)
     for key in ("episodes", "success", "spl", "total_env_steps", "stuck_dx", "stuck_dz",
                 "stuck_both"):
         assert gagg[key] == wagg[key], key
-    for key in ("vo_l2_mean", "global_drift_mean", "softspl", "distance_to_goal", "reward"):
+    for key in (("vo_l2_mean", "global_drift_mean") if vo else ()) + (
+            "softspl", "distance_to_goal", "reward"):
         np.testing.assert_allclose(gagg[key], wagg[key], rtol=1e-4, err_msg=key)
     assert [e["steps"] for e in geps] == [e["steps"] for e in weps]
     assert [e["success"] for e in geps] == [e["success"] for e in weps]
@@ -457,11 +460,6 @@ _RL_UNPORTED = {
     "classical_vo": ["VO.VO_TYPE", "CLASSICAL"],
     "gru": ["RL.Policy.rnn_backbone", "GRU"],
     "baseline_policy": ["RL.Policy.name", "pointnav_baseline_policy"],
-    "video": ["VIDEO_OPTION", "[disk]"],
-    "ranked_images": ["EVAL.SAVE_RANKED_IMGS", "True"],
-    "gps_only_eval": ["VO.USE_VO_MODEL", "False"],
-    "shm_backend": ["ENV_BACKEND", "shm"],
-    "habitat_backend": ["ENV_BACKEND", "habitat"],
 }
 
 
@@ -469,6 +467,62 @@ _RL_UNPORTED = {
 def test_unported_rl_option_raises(name, weights, tmp_path):
     opts = _rl_opts(weights["paths"], weights["paths"]["policy"]) + _RL_UNPORTED[name]
     _raises_not_ported(lambda: _cli(trun.main, tmp_path, "rl", "eval", opts, port=True))
+
+
+# ---------------------------------------------------------------- the eval's host options
+
+
+_RL_OPTIONS = {
+    "video": ["VIDEO_OPTION", "[disk]"],
+    "ranked_images": ["EVAL.SAVE_RANKED_IMGS", "True", "EVAL.RANK_TOP_K", "3"],
+    "gps_only_eval": ["VO.USE_VO_MODEL", "False"],
+    "shm_backend": ["ENV_BACKEND", "shm"],
+    "habitat_backend": ["ENV_BACKEND", "habitat"],  # over tests/fake_habitat.py
+}
+
+
+@pytest.mark.parametrize("name", sorted(_RL_OPTIONS))
+def test_rl_eval_option_matches_jax(name, weights, tmp_path, monkeypatch):
+    """Each option through both CLIs on the same exported ``.pth`` files:
+    the same metrics, and the same videos or ranked images on disk."""
+    if name == "habitat_backend":
+        monkeypatch.setitem(sys.modules, "habitat", fake_habitat)
+    opts = _rl_opts(weights["paths"], weights["paths"]["policy"]) + _RL_OPTIONS[name]
+    _cli(jrun.main, tmp_path / "jax", "rl", "eval", opts)
+    metrics = _cli(trun.main, tmp_path / "port", "rl", "eval", opts, port=True)
+    runs = {side: _last_run(tmp_path / side, "rl-eval") for side in ("port", "jax")}
+    got, want = (_eval_outputs(runs[side], "rl_policy") for side in ("port", "jax"))
+    _assert_eval_matches(got, want, vo=name != "gps_only_eval")
+    assert metrics["episodes"] == EPISODES and got[0]["total_env_steps"] > 2 * EPISODES
+    if name == "gps_only_eval":
+        assert "vo_l2_mean" not in got[0] and got[0]["time_act_s"] > 0
+    if name in ("video", "ranked_images"):
+        sub = "videos" if name == "video" else os.path.join("infos", "ranked_imgs")
+        files = {side: sorted(os.listdir(os.path.join(runs[side], sub))) for side in runs}
+        assert files["port"] and len(files["port"]) == len(files["jax"])
+        if name == "video":
+            assert files["port"] == files["jax"]
+            assert all(os.path.getsize(os.path.join(runs["port"], sub, f)) > 0
+                       for f in files["port"])
+        else:
+            assert len(files["port"]) == 3 + 1  # the top 3 and the manifest
+
+
+def test_rl_train_update_over_shm_equals_sync(weights, tmp_path):
+    """One CLI update over ``ENV_BACKEND shm`` (2 scripted process workers,
+    VO in the loop) writes the checkpoint the in-process envs write."""
+    opts = _rl_opts(weights["paths"], "", ("NUM_UPDATES", "1", "RL.TUNE_WITH_VO", "True"))
+    states = {}
+    for backend in ("sync", "shm"):
+        trainer = _cli(trun.main, tmp_path / backend, "rl", "train",
+                       opts + ["ENV_BACKEND", backend], port=True)
+        assert trainer.update_idx == 1 and trainer.count_steps == 8
+        states[backend] = load_checkpoint(os.path.join(
+            _last_run(tmp_path / backend, "rl-train"), "checkpoints",
+            "ckpt_0.update_0.frames_8.pth"))["state_dict"]
+    assert states["shm"].keys() == states["sync"].keys()
+    for k, v in states["sync"].items():
+        assert torch.equal(states["shm"][k], v), k
 
 
 _VO_UNPORTED = {
