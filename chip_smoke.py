@@ -111,7 +111,24 @@ Phases, each printing a line; any failure exits non-zero:
    step, one unfused step within rtol 1e-3 / atol 1e-4 of the fused step
    and of the CPU's (actions equal); (d) eval videos and ranked images
    composed on the card's run, written with ``cv2`` where the machine has
-   it (else a line says the writers are held on the CPU only).
+   it (else a line says the writers are held on the CPU only);
+12. the VO model zoo at full width (fp32, TF32 off, seeded weights):
+   (a) each of the seven backbones in the paper model's encoder: one det
+   forward at B=8 on scripted frames held against the CPU (rtol 1e-3,
+   atol 1e-4), exactly 2 ``bin_counts`` launches (the two frame batches),
+   the device time of a no-grad B=128 forward and its peak memory; (b)
+   every name of ``VO_MODEL_NAMES`` with its own observation space, the
+   act-embed ones with the action ids: the same check, 2 launches for
+   each of the five top-down variants and none for the other seven; (c)
+   ``vo_cnn_act_embed`` with ``action_type: -1`` at batch 128 over a
+   70/15/15 action mix: a fixed batch's loss over 8 steps (it must fall),
+   the step's time, and one B=8 step against the CPU under phase 6's
+   gates, beside a float64 step; (d) ``vo_cnn_deeper`` (ResNet-101) in the
+   forward stage at batch 128: the same, with the float64 distances of
+   both sides; (e) phase 3's fused det eval built through ``engines.py``
+   from a config with ResNet-50 VO experts, a ResNet-50 policy and
+   ``VO.OBS_TRANSFORM resize_crop`` over 256x256 renders: steps + 1
+   launches, one step held against the CPU (actions equal).
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -124,6 +141,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -174,6 +192,9 @@ E994_EPISODES, E994_CAP = 32, 30
 BF16_EVAL_CAP = 10  # phase 3 in bf16: the episode cap of its Evaluator.run
 FARM_CAP = 20  # phase 11: phase 3's episode cap
 FARM_SLOTS = 4  # payloads a worker's ring holds (ShmVectorEnv's default)
+ZOO_PARITY_BATCH = 8  # phase 12: card-vs-CPU forwards and the train steps held against float64
+ZOO_TIME_BATCH = 128  # phase 12 (a): the timed no-grad forward
+ZOO_SENSOR = 256  # phase 12 (e): the envs' render size, resized by VO.OBS_TRANSFORM
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -886,8 +907,9 @@ def _train_stage(dev, card, stage, engine, data, eval_data):
     return record
 
 
-def _train_step_vs_cpu(dev, stage, tcfg, batch, experts):
-    """One train step at full width, dropout off, from the same weights: on
+def _train_step_vs_cpu(dev, stage, tcfg, batch, experts, icfg=None):
+    """One train step at full width, dropout off, from the same weights
+    (the experts of ``icfg``, the paper model's config where None): on
     the card and on the CPU in float32, and on the CPU in float64 as the
     reference.  Loss: card vs CPU rtol 1e-4.  Whitening statistics: rtol
     1e-4, atol 1e-6, counts equal.  Gradients: each tensor's relative L2
@@ -904,14 +926,16 @@ def _train_step_vs_cpu(dev, stage, tcfg, batch, experts):
     from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
     from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
 
-    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0)
-    runs = {}
+    icfg = icfg or VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0)
+    runs, step_s = {}, {}
     for name, device, dtype in (("card", dev, torch.float32),
                                 ("cpu", torch.device("cpu"), torch.float32),
                                 ("cpu64", torch.device("cpu"), torch.float64)):
         engine = VORegressionEngine(icfg, tcfg, device=device,
                                     experts=[copy.deepcopy(m).to(dtype) for m in experts])
+        t0 = time.perf_counter()
         loss = float(engine.train_step(batch)["total_loss"])
+        step_s[name] = time.perf_counter() - t0
         runs[name] = (loss, engine.experts)
     (loss_card, card), (loss_cpu, cpu), (loss_64, cpu64) = runs.values()
     if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
@@ -940,12 +964,14 @@ def _train_step_vs_cpu(dev, stage, tcfg, batch, experts):
                 and torch.allclose(rc._mean.cpu(), rh._mean, rtol=1e-4, atol=1e-6)
                 and torch.allclose(rc._var.cpu(), rh._var, rtol=1e-4, atol=1e-6)):
             raise AssertionError(f"{stage}: card and CPU whitening statistics differ")
-    _log("train", f"{stage} card vs CPU train step, B={PARITY_BATCH}: loss {loss_card:.8f} "
-                  f"(CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst gradient error over "
-                  "tensors [relative L2, max abs / max abs]: "
-                  + json.dumps(worst) + "; whitening statistics agree")
+    _log("train", f"{stage} card vs CPU train step, B={batch.actions.shape[0]}: loss "
+                  f"{loss_card:.8f} (CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst gradient "
+                  "error over tensors [relative L2, max abs / max abs]: "
+                  + json.dumps(worst) + "; whitening statistics agree; step s "
+                  + json.dumps(step_s))
     grads64 = [p.grad for m in cpu64 for p in m.parameters()]
-    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}, grads64
+    return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst,
+            "step_s": step_s}, grads64
 
 
 def _rel_l2(a, b):
@@ -1952,6 +1978,312 @@ def phase_farm(dev, card):
 
 
 
+_PAPER_OBS = ("rgb", "depth", "discretized_depth", "top_down_view")
+
+
+def _zoo_frames(n, seed, make_envs=None):
+    """Two consecutive observations of ``n`` envs (``make_envs(n, seed)``;
+    scripted at full width by default), the second after a 70/15/15
+    forward/left/right step, and the actions."""
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+
+    if make_envs is None:
+        make_envs = functools.partial(make_scripted_vector_env, EnvConfig(image_h=H, image_w=W))
+    envs = make_envs(n, seed=seed)
+    obs0 = envs.reset()
+    rng = np.random.default_rng(seed)
+    actions = np.where(rng.uniform(size=n) < 0.7, 1, rng.integers(2, 4, n)).astype(np.int64)
+    obs1 = envs.step(actions)[0]
+    envs.close()
+    return obs0, obs1, actions
+
+
+def _zoo_pairs(cfg, frames, dev):
+    """The packed pairs of ``frames`` under ``cfg`` on ``dev``: one feature
+    pass (one ``bin_counts`` launch where the space has the top-down view)
+    per frame batch."""
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
+
+    obs0, obs1, actions = frames
+    packs = [frame_features_packed(torch.as_tensor(o["rgb"], device=dev),
+                                   torch.as_tensor(o["depth"], device=dev), cfg)
+             for o in (obs0, obs1)]
+    return torch.cat(packs, dim=-1), torch.as_tensor(actions, device=dev)
+
+
+def _zoo_forward(model, pairs, actions):
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.engine import apply_vo_model
+
+    with torch.no_grad():
+        return apply_vo_model(model, pairs, actions)
+
+
+def _zoo_vs_cpu(what, model, cfg, frames, dev):
+    """One det forward of ``model`` on the card against its CPU copy on
+    the same frames (each side computes its features): rtol 1e-3 / atol
+    1e-4 on the delta (fp32, TF32 off).  Returns (max abs err, launches)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    cpu = copy.deepcopy(model).eval()
+    card = model.to(dev).eval()
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    got = _zoo_forward(card, *_zoo_pairs(cfg, frames, dev))
+    torch.cuda.synchronize()
+    launches = tk.launch_counts["bin_counts"]
+    want = _zoo_forward(cpu, *_zoo_pairs(cfg, frames, torch.device("cpu")))
+    err = float((got.cpu().double() - want.double()).abs().max())
+    if not (torch.isfinite(got).all() and torch.allclose(got.cpu(), want, rtol=1e-3,
+                                                          atol=1e-4)):
+        raise AssertionError(f"{what}: card vs CPU delta, max abs err {err}")
+    return err, launches
+
+
+def _zoo_backbones(dev, card):
+    """(a) Each backbone in the paper model's encoder: card vs CPU at B=8,
+    the device time of a no-grad B=128 forward, its peak memory."""
+    import torch
+
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models import resnet as resnet_lib
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    frames = _zoo_frames(ZOO_PARITY_BATCH, SEED + 40)
+    rng = np.random.default_rng(SEED + 41)
+    big = torch.from_numpy(rng.uniform(0, 1, (ZOO_TIME_BATCH, H, W, 30)).astype(np.float32))
+    big_acts = torch.ones(ZOO_TIME_BATCH, dtype=torch.int64, device=dev)
+    big = big.to(dev)
+    out = {}
+    for name in resnet_lib.BACKBONES:
+        cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, backbone=name)
+        model = seeded_init_(cfg.make_model(), torch.Generator().manual_seed(SEED + 42))
+        params = sum(p.numel() for p in model.parameters())
+        err, launches = _zoo_vs_cpu(f"backbone {name}", model, cfg, frames, dev)
+        if launches != 2:
+            raise AssertionError(f"backbone {name}: {launches} bin_counts launches, expected 2")
+        fwd = lambda: _zoo_forward(model, big, big_acts)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fwd()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        ms = _time_ms(fwd, iters=3, warmup=1)
+        dev_ms = _device_ms(fwd, 3)
+        out[name] = {"params": params, "max_abs_err": err, "launches": launches, "ms": ms,
+                     "frame_pairs_per_s": ZOO_TIME_BATCH / (ms / 1e3), "device_ms": dev_ms,
+                     "device_frame_pairs_per_s": ZOO_TIME_BATCH / (dev_ms / 1e3),
+                     "peak_gib": peak}
+        _log("zoo", f"(a) {name}: {params} parameters; card vs CPU B={ZOO_PARITY_BATCH} max abs "
+                    f"err {err:.3e} (rtol 1e-3, atol 1e-4); no-grad B={ZOO_TIME_BATCH} forward "
+                    f"{ms:.4f} ms CUDA events, {out[name]['frame_pairs_per_s']:.1f} frame-pairs/s; "
+                    f"profiler device sum {dev_ms:.4f} ms "
+                    f"({out[name]['device_frame_pairs_per_s']:.1f} frame-pairs/s); peak "
+                    f"{peak:.3f} GiB on {card}")
+        model.cpu()
+        del model
+    del big
+    return out
+
+
+def _zoo_variants(dev):
+    """(b) Every VO variant with its own observation space: card vs CPU at
+    B=8 (the act-embed ones with the action ids), and one ``bin_counts``
+    launch per frame batch exactly where the space has the top-down view."""
+    import torch
+
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models import vo_cnn
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    frames = _zoo_frames(ZOO_PARITY_BATCH, SEED + 43)
+    out, total = {}, 0
+    for name in vo_cnn.VO_MODEL_NAMES:
+        obs = vo_cnn._VARIANTS[name]["requires"]
+        cfg = VOInferenceConfig(model_name=name, observation_space=obs, vis_size_h=H,
+                                vis_size_w=W)
+        model = seeded_init_(cfg.make_model(), torch.Generator().manual_seed(SEED + 44))
+        err, launches = _zoo_vs_cpu(f"variant {name}", model, cfg, frames, dev)
+        want = 2 if "top_down_view" in obs else 0
+        if launches != want:
+            raise AssertionError(f"variant {name}: {launches} bin_counts launches over 2 frame "
+                                 f"batches, expected {want}")
+        total += launches
+        out[name] = {"max_abs_err": err, "launches": launches,
+                     "model": type(model).__name__,
+                     "backbone": type(model.visual_encoder.backbone.layer1[0]).__name__,
+                     "blocks": sum(len(getattr(model.visual_encoder.backbone, f"layer{i}"))
+                                   for i in range(1, 5)),
+                     "input_channels": model.visual_encoder.input_channels}
+        _log("zoo", f"(b) {name} {obs}: {out[name]['model']}, "
+                    f"{out[name]['blocks']} {out[name]['backbone']}s, "
+                    f"{out[name]['input_channels']} input channels; card vs CPU B="
+                    f"{ZOO_PARITY_BATCH} max abs err {err:.3e}; bin_counts launches {launches}")
+        model.cpu()
+        del model
+    return out, total
+
+
+def _zoo_fixed_batch_losses(engine, batch, what):
+    """The loss of one fixed batch under one fixed set of dropout masks
+    before each of TRAIN_STEPS + 1 steps: it must fall."""
+    gen_state = engine.generator.get_state()
+    losses = []
+    for _ in range(TRAIN_STEPS + 1):
+        engine.generator.set_state(gen_state)
+        losses.append(float(engine.train_step(batch)["total_loss"]))
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: the fixed batch's loss did not fall: {losses}")
+    return losses
+
+
+def _zoo_train(dev, card, name, tcfg, action_fn, seed):
+    """A train stage of variant ``name`` at batch 128 on scripted pairs:
+    the fixed batch's loss, step ms, frame-pairs/s and peak memory, then one
+    step of ``ZOO_PARITY_BATCH`` rows held against the CPU, both sides beside
+    a float64 step (phase 6's gates)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models import vo_cnn
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    t0 = time.perf_counter()
+    data = MemoryFramePairs.scripted(TRAIN_BATCH, action_fn, seed,
+                                     env_cfg=EnvConfig(image_h=H, image_w=W))
+    data_s = time.perf_counter() - t0
+    obs = vo_cnn._VARIANTS[name]["requires"]
+    icfg = VOInferenceConfig(model_name=name, observation_space=obs, vis_size_h=H, vis_size_w=W)
+    expert = seeded_init_(icfg.make_model(), torch.Generator().manual_seed(seed))
+    engine = VORegressionEngine(icfg, tcfg, data, device=dev, experts=[copy.deepcopy(expert)])
+    batch = next(data.iter_batches(TRAIN_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = _zoo_fixed_batch_losses(engine, batch, name)
+    step_ms = _time_ms(lambda: engine.train_step(batch), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pairs = TRAIN_BATCH / (step_ms / 1e3)
+    acts = {int(a): int((batch.actions == a).sum()) for a in np.unique(batch.actions)}
+    _log("zoo", f"{name}, action_type {tcfg.action_type!r}, B={TRAIN_BATCH} (actions {acts}; "
+                f"pairs made in {data_s:.1f} s): fixed batch and dropout masks, loss before "
+                f"each of {TRAIN_STEPS + 1} steps: " + " ".join(f"{x:.6f}" for x in losses)
+                + f"; train_step {step_ms:.3f} ms, {pairs:.2f} frame-pairs/s (CUDA events, "
+                f"batch upload included), peak {peak:.3f} GiB on {card}")
+    del engine
+    parity_cfg = dataclasses.replace(tcfg, batch_size=ZOO_PARITY_BATCH)
+    parity = next(data.iter_batches(ZOO_PARITY_BATCH))
+    vs_cpu, _ = _train_step_vs_cpu(dev, name, parity_cfg, parity, [expert],
+                                   dataclasses.replace(icfg, dropout_p=0.0))
+    return {"actions": acts, "fixed_batch_losses": losses, "step_ms": step_ms,
+            "frame_pairs_per_s": pairs, "peak_gib": peak, "parity_batch": ZOO_PARITY_BATCH,
+            "vs_cpu": vs_cpu}
+
+
+def _zoo_nav_eval(dev, card):
+    """(e) Phase 3's fused det eval built through ``engines.py`` from a
+    config: ResNet-50 VO experts and a ResNet-50 policy, ``VO.OBS_TRANSFORM
+    resize_crop`` over 256x256 renders (the shortest edge to 341, then the
+    341x192 center), 32 scripted envs, a 20-step cap, 32 episodes; one
+    fused step held against the CPU."""
+    import torch
+
+    from pointnav_vo_tpu_torch import engines
+    from pointnav_vo_tpu_torch.config.defaults import get_rl_config
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator, fused_vo_act_step
+    from pointnav_vo_tpu_torch.utils import registry
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble
+
+    cap = 20
+    sensors = [f"TASK_CONFIG.SIMULATOR.{s}_SENSOR.{side}" for s in ("DEPTH", "RGB")
+               for side in ("HEIGHT", "WIDTH")]
+    config = get_rl_config([RL_CONFIG], [
+        "NUM_PROCESSES", str(N_ENVS), "SEED", str(SEED),
+        "VO.USE_VO_MODEL", "True", "VO.REGRESS_MODEL.pretrained", "False",
+        "VO.REGRESS_MODEL.visual_backbone", "resnet50", "RL.Policy.visual_backbone", "resnet50",
+        "VO.OBS_TRANSFORM", "resize_crop", "VO.VIS_SIZE_W", str(W), "VO.VIS_SIZE_H", str(H),
+        "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", str(cap),
+        *[x for key in sensors for x in (key, str(ZOO_SENSOR))]])
+    policy = registry.get_policy(config.RL.Policy.name)(config)
+    seeded_init_(policy, torch.Generator().manual_seed(SEED + 50))
+    cpu_policy = copy.deepcopy(policy).eval()
+    policy = policy.to(dev).eval()
+    vo = engines._build_vo_ensemble(config, dev)
+    cpu_vo = VOEnsemble(vo.cfg, experts=[copy.deepcopy(m).cpu() for m in vo.experts],
+                        device="cpu")
+    envs = registry.get_env(config.ENV_NAME)(config, N_ENVS, seed=SEED + 50)
+    ev = Evaluator(model=policy, envs=envs, vo_ensemble=vo, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = ev.run(N_ENVS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    loop_steps = max(r.steps for r in ev.results)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    envs.close()
+    if agg["episodes"] != N_ENVS or not all(np.isfinite(v) for v in agg.values()):
+        raise AssertionError(f"zoo nav eval: {agg}")
+    if launches != loop_steps + 1:
+        raise AssertionError(f"zoo nav eval: bin_counts launched {launches} times over "
+                             f"{loop_steps} steps; expected steps + 1")
+    _log("zoo", f"(e) Evaluator.run, ResNet-50 VO and policy, {ZOO_SENSOR}x{ZOO_SENSOR} renders "
+                f"through resize_crop to {W}x{H}: " + json.dumps(agg, sort_keys=True))
+    _log("zoo", f"(e) {loop_steps} steps, {int(agg['total_env_steps'])} env steps, wall "
+                f"{wall:.3f} s, bin_counts launches {launches}, peak {peak:.3f} GiB on {card}")
+
+    obs0, obs1, actions = _zoo_frames(N_ENVS, SEED + 51, functools.partial(
+        registry.get_env(config.ENV_NAME), config))
+    if obs1["depth"].shape[1:3] != (ZOO_SENSOR, ZOO_SENSOR):
+        raise AssertionError(f"the envs render {obs1['depth'].shape}, not {ZOO_SENSOR}^2")
+    args = _fused_inputs(obs0, obs1, actions, dev, vo.cfg, policy)
+    if tuple(args["prev_feats"].shape[1:3]) != (H, W):
+        raise AssertionError(f"resize_crop gave features of {tuple(args['prev_feats'].shape)}")
+    step_ms = _time_ms(lambda: fused_vo_act_step(policy, vo, **args), iters=10)
+    got = fused_vo_act_step(policy, vo, **args)
+    cpu_args = _fused_inputs(obs0, obs1, actions, torch.device("cpu"), cpu_vo.cfg, cpu_policy)
+    want = fused_vo_act_step(cpu_policy, cpu_vo, **cpu_args)
+    errs = _compare_step(got, want)
+    _log("zoo", f"(e) fused_vo_act_step at {N_ENVS} envs: {step_ms:.4f} ms/step (CUDA events); "
+                "card vs CPU (rtol 1e-3, atol 1e-4; actions equal): "
+                + json.dumps(errs, sort_keys=True))
+    return {"launches": launches, "loop_steps": loop_steps, "wall_s": wall, "metrics": agg,
+            "step_ms": step_ms, "peak_gib": peak, "vs_cpu": errs}
+
+
+def _zoo_tcfg(action_type):
+    from pointnav_vo_tpu_torch.vo.engine import VOTrainConfig
+
+    return VOTrainConfig(batch_size=TRAIN_BATCH, action_type=action_type, lr=2.5e-4, seed=SEED)
+
+
+def phase_zoo(dev, card):
+    """Phase 12: the VO model zoo at full width, fp32, TF32 off."""
+    from pointnav_vo_tpu_torch.common import UNIFIED
+
+    backbones = _zoo_backbones(dev, card)
+    variants, variant_launches = _zoo_variants(dev)
+    unified = _zoo_train(
+        dev, card, "vo_cnn_act_embed", _zoo_tcfg(UNIFIED),
+        lambda _env, _obs, r: 1 if r.uniform() < 0.7 else r.integers(2, 4),
+        SEED + 45)
+    deep = _zoo_train(dev, card, "vo_cnn_deeper", _zoo_tcfg(1), lambda *_: 1, SEED + 46)
+    nav = _zoo_nav_eval(dev, card)
+    return {"backbones": backbones, "variants": variants, "variant_launches": variant_launches,
+            "unified": unified, "deep": deep, "nav_eval": nav}
+
+
 def main() -> int:
     import torch
 
@@ -1985,6 +2317,7 @@ def main() -> int:
     agent = timed("agent", phase_agent, dev, card)
     e994 = timed("eval_994", phase_eval_994, dev, card)
     farm = timed("farm", phase_farm, dev, card)
+    zoo = timed("zoo", phase_zoo, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -2000,7 +2333,10 @@ def main() -> int:
                "farm_det_eval_shm_async": farm["launches"]["shm_async"],
                "farm_gps_only_eval": farm["launches"]["gps_only"],
                "farm_unfused_eval": farm["launches"]["unfused"],
-               "farm_video_ranked_eval": farm["launches"]["video_ranked"]}
+               "farm_video_ranked_eval": farm["launches"]["video_ranked"],
+               "zoo_backbones": sum(b["launches"] for b in zoo["backbones"].values()),
+               "zoo_variants": zoo["variant_launches"],
+               "zoo_nav_eval": zoo["nav_eval"]["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -2029,6 +2365,7 @@ def main() -> int:
         "agent": agent,
         "eval_994": e994,
         "farm": farm,
+        "zoo": zoo,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

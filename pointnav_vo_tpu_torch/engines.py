@@ -81,19 +81,19 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 
 @registry.register_policy(name="resnet_rnn_policy")
 def make_resnet_rnn_policy(config: Config):
-    """The deployed depth policy: ResNet18 and a 2-layer LSTM."""
+    """The depth policy: ``RL.Policy.visual_backbone`` (any of
+    ``resnet.BACKBONES``) and an LSTM of ``num_recurrent_layers`` layers."""
     pol = config.RL.Policy
     if pol.rnn_backbone != "LSTM":
         raise not_ported(f"RL.Policy.rnn_backbone {pol.rnn_backbone!r} (the GRU)", "10")
     if list(pol.visual_types) != ["depth"]:
         raise not_ported(f"RL.Policy.visual_types {list(pol.visual_types)} (rgb policies)",
                          "10")
-    if pol.visual_backbone != "resnet18" or pol.num_recurrent_layers != 2:
-        raise not_ported(f"RL.Policy {pol.visual_backbone} with "
-                         f"{pol.num_recurrent_layers} recurrent layers", "12")
     depth = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR
     return PointNavActorCritic(image_size=(depth.HEIGHT, depth.WIDTH),
-                               hidden_size=config.RL.PPO.hidden_size)
+                               hidden_size=config.RL.PPO.hidden_size,
+                               backbone=pol.visual_backbone,
+                               num_recurrent_layers=pol.num_recurrent_layers)
 
 
 @registry.register_policy(name="pointnav_baseline_policy")
@@ -128,21 +128,21 @@ def make_nav_rl_env(config: Config, num_envs: int, seed: int = 0, noisy: bool = 
 def vo_inference_config_from(config: Config, model_node: Config,
                              precision: str = "fp32") -> VOInferenceConfig:
     """The model node's inference config; its ``precision`` key, else
-    ``precision`` ("fp32" or "bf16"), sets the compute dtype."""
+    ``precision`` ("fp32" or "bf16"), sets the compute dtype.  Any variant
+    of ``VO_MODEL_NAMES`` (``name``) on any backbone (``visual_backbone``),
+    with ``VO.OBS_TRANSFORM`` resizing the frames first."""
     sim = config.TASK_CONFIG.SIMULATOR
     precision = model_node.get("precision", precision)
-    if config.VO.get("OBS_TRANSFORM", "none") != "none":
-        raise not_ported(f"VO.OBS_TRANSFORM {config.VO.OBS_TRANSFORM!r}", "12")
-    if model_node.visual_backbone != "resnet18":
-        raise not_ported(f"VO visual_backbone {model_node.visual_backbone!r}", "12")
     return VOInferenceConfig(
         model_name=model_node.name,
         observation_space=tuple(model_node.visual_type),
         vis_size_w=config.VO.VIS_SIZE_W,
         vis_size_h=config.VO.VIS_SIZE_H,
         hidden_size=model_node.hidden_size,
+        backbone=model_node.visual_backbone,
         discretized_depth_channels=model_node.discretized_depth_channels,
         dropout_p=model_node.dropout_p,
+        obs_transform=config.VO.get("OBS_TRANSFORM", "none"),
         min_depth=sim.DEPTH_SENSOR.MIN_DEPTH,
         max_depth=sim.DEPTH_SENSOR.MAX_DEPTH,
         hfov=sim.DEPTH_SENSOR.HFOV,  # degrees consumed as radians: the reference's quirk
@@ -568,6 +568,6 @@ class PPOEngine(_BaseRLEngine):
     pass
 
 
-# the VO variants the port has, through the registry like the reference
+# every VO variant, through the registry like the reference
 for _name in VO_MODEL_NAMES:
     registry.register_vo_model(name=_name)(functools.partial(make_vo_model, _name))

@@ -6,6 +6,11 @@ The port's own copy of the key mapping of ``io/torch_export.py``: conv
 HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
 ``weight``, RunningMeanAndVar ``(C,)`` stats -> ``(1, C, 1, 1)`` buffers;
 the LSTM matrices are stored in torch's layout already and pass through.
+It covers every backbone (a bottleneck's ``conv3``/``gn3`` at ``convs.6``
+and ``convs.7``, the SE gate's ``fc1``/``fc2`` at ``se.excite.0`` and
+``se.excite.2``; a grouped kernel ``[kh, kw, I/g, O]`` takes the same
+transpose to torch's ``[O, I/g, kh, kw]``) and the act-embed model
+(``action_embedding``, ``hidden_generator.1``).
 
 :func:`vo_state_dicts_from_stacked` reads the JAX training engine's stacked
 expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`,
@@ -55,8 +60,11 @@ def _dense(w: np.ndarray) -> np.ndarray:
 
 _KIND = {"conv": _conv, "dense": _dense, "plain": lambda v: v}
 
-# position inside a block's ``convs`` Sequential (conv, gn, relu, conv, gn)
-_CONVS_IDX = {"conv1": "0", "gn1": "1", "conv2": "3", "gn2": "4"}
+# position inside a block's ``convs`` Sequential (conv, gn, relu triplets;
+# a bottleneck has a third conv and GroupNorm)
+_CONVS_IDX = {"conv1": "0", "gn1": "1", "conv2": "3", "gn2": "4", "conv3": "6", "gn3": "7"}
+# position inside an SE gate's ``excite`` Sequential (Linear, ReLU, Linear)
+_SE_IDX = {"fc1": "0", "fc2": "2"}
 
 
 def _wb(leaf: str) -> str:
@@ -84,6 +92,9 @@ def _backbone_key(path: Tuple[str, ...]) -> Tuple[str, str]:
         return f"{base}.downsample.0.weight", "conv"
     if sub == "down_gn":
         return f"{base}.downsample.1.{_wb(leaf)}", "plain"
+    if sub == "se":
+        kind = "dense" if leaf == "kernel" else "plain"
+        return f"{base}.se.excite.{_SE_IDX[path[2]]}.{_wb(leaf)}", kind
     raise KeyError(f"unrecognized backbone path: {'.'.join(path)}")
 
 
@@ -114,7 +125,8 @@ def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def vo_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``VOCNN`` variables -> state dict of :class:`models.vo_cnn.VOCNN`."""
+    """Flax ``VOCNN`` or ``VOCNNActEmbed`` variables -> state dict of
+    :class:`models.vo_cnn.VOCNN` or :class:`models.vo_cnn.VOCNNActEmbed`."""
     sd: Dict[str, np.ndarray] = {}
     for path, v in _flatten(variables.get("params", {})):
         head, leaf = path[0], path[-1]
@@ -122,8 +134,12 @@ def vo_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tens
             key, val = _encoder_entry(path[1:], v, "visual_encoder.")
         elif head == "visual_fc":  # Sequential(Flatten, Dropout, Linear, ReLU)
             key, val = _linear("visual_fc.2", leaf, v)
+        elif head == "hidden_generator":  # Sequential(Dropout, Linear, ReLU)
+            key, val = _linear("hidden_generator.1", leaf, v)
         elif head == "output_head":  # Sequential(Dropout, Linear)
             key, val = _linear("output_head.1", leaf, v)
+        elif head == "action_embedding":
+            key, val = "action_embedding.weight", v
         else:
             raise KeyError(f"unrecognized VO param: {'.'.join(path)}")
         sd[key] = val
@@ -149,6 +165,10 @@ def _backbone_path(key: str) -> Tuple[Tuple[str, ...], str]:
         if parts[3] == "0":
             return (block, "down_conv", "kernel"), "conv"
         return (block, "down_gn", gn_leaf), "plain"
+    if parts[2] == "se":  # se.excite.<i>.weight
+        fc = {v: k for k, v in _SE_IDX.items()}[parts[4]]
+        return (block, "se", fc, "kernel" if leaf == "weight" else "bias"), (
+            "dense" if leaf == "weight" else "plain")
     raise KeyError(f"unrecognized backbone key: {key}")
 
 
@@ -174,16 +194,21 @@ def _dense_path(name: str, leaf: str) -> Tuple[Tuple[str, ...], str]:
 
 
 def _vo_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
-    """Torch parameter key of :class:`models.vo_cnn.VOCNN` -> (flax path
-    under ``params``, kind)."""
+    """Torch parameter key of :class:`models.vo_cnn.VOCNN` or
+    :class:`models.vo_cnn.VOCNNActEmbed` -> (flax path under ``params``,
+    kind)."""
     leaf = key.rsplit(".", 1)[-1]
     if key.startswith("visual_encoder."):
         path, kind = _encoder_path(key[len("visual_encoder."):])
         return ("visual_encoder",) + path, kind
     if key.startswith("visual_fc.2."):
         return _dense_path("visual_fc", leaf)
+    if key.startswith("hidden_generator.1."):
+        return _dense_path("hidden_generator", leaf)
     if key.startswith("output_head.1."):
         return _dense_path("output_head", leaf)
+    if key == "action_embedding.weight":
+        return ("action_embedding", "embedding"), "plain"
     raise KeyError(f"unrecognized VO key: {key}")
 
 
@@ -198,7 +223,7 @@ def _set(tree: Dict, path: Tuple[str, ...], value) -> None:
 
 
 def vo_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """State dict (or ``{name: grad}``) of :class:`models.vo_cnn.VOCNN` ->
+    """State dict (or ``{name: grad}``) of either VO model ->
     flax ``{"params": ..., "batch_stats": ...}`` of numpy arrays (no
     ``batch_stats`` when ``sd`` holds no whitening buffers)."""
     out: Dict[str, Dict] = {"params": {}}
@@ -358,7 +383,8 @@ def vo_state_dict_from_container(ckpt: Mapping[str, Any],
 
 
 def load_vo_checkpoint(path: str, act_idx: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """The state dict of :class:`models.vo_cnn.VOCNN` in a reference VO
+    """The state dict of a VO model (any backbone, or the act-embed
+    model) in a reference VO
     ``.pth`` (see :func:`vo_state_dict_from_container`)."""
     return vo_state_dict_from_container(load_checkpoint(path), act_idx)
 

@@ -1,8 +1,9 @@
 """Navigation actor-critic (counterpart of ``models/policy.py``), the deployed
-``resnet_rnn_policy``: a depth GroupNorm-ResNet18 behind a 2x2 avg-pool, the
-goal encoded as ``[rho, cos(-phi), sin(-phi)] -> Linear(32)``, a 32-d
-previous-action embedding with the +1 shift and done-masking, a 2-layer
-LSTM, a categorical action head and a linear critic.
+``resnet_rnn_policy``: a depth GroupNorm ResNet (ResNet18 deployed, any of
+``resnet.BACKBONES``) behind a 2x2 avg-pool, the goal encoded as
+``[rho, cos(-phi), sin(-phi)] -> Linear(32)``, a 32-d previous-action
+embedding with the +1 shift and done-masking, an LSTM (2 layers deployed,
+``num_recurrent_layers``), a categorical action head and a linear critic.
 
 Module names follow the reference state dict (without the ``actor_critic.``
 prefix): ``net.visual_encoder``, ``net.visual_fc.1``, ``net.tgt_embeding``,
@@ -31,19 +32,20 @@ from pointnav_vo_tpu_torch.models.vo_cnn import compression_channels
 
 PREV_ACTION_EMBED_DIM = 32
 GOAL_EMBED_DIM = 32
-NUM_RECURRENT_LAYERS = 2
+NUM_RECURRENT_LAYERS = 2  # the deployed policy's
 
 
 class PolicyResNetEncoder(nn.Module):
     """Visual trunk: avg-pool/2 (floor) -> backbone -> compression."""
 
-    def __init__(self, image_size: Tuple[int, int] = (192, 341), baseplanes: int = 32):
+    def __init__(self, image_size: Tuple[int, int] = (192, 341), baseplanes: int = 32,
+                 backbone: str = "resnet18"):
         super().__init__()
         h, w = image_size
         fh, fw = math.ceil((h // 2) / 32), math.ceil((w // 2) / 32)
         self.output_shape = (compression_channels(fh, fw), fh, fw)
-        self.backbone = resnet_lib.resnet18(1, base_planes=baseplanes,
-                                            ngroups=baseplanes // 2)
+        self.backbone = resnet_lib.BACKBONES[backbone](1, base_planes=baseplanes,
+                                                       ngroups=baseplanes // 2)
         ch = self.output_shape[0]
         self.compression = nn.Sequential(
             nn.Conv2d(self.backbone.final_channels, ch, 3, padding=1, bias=False),
@@ -58,9 +60,9 @@ class PolicyResNetEncoder(nn.Module):
 
 
 class _Net(nn.Module):
-    def __init__(self, image_size, hidden_size, baseplanes):
+    def __init__(self, image_size, hidden_size, baseplanes, backbone, num_recurrent_layers):
         super().__init__()
-        self.visual_encoder = PolicyResNetEncoder(image_size, baseplanes)
+        self.visual_encoder = PolicyResNetEncoder(image_size, baseplanes, backbone)
         flat = math.prod(self.visual_encoder.output_shape)
         self.visual_fc = nn.Sequential(nn.Flatten(), nn.Linear(flat, hidden_size),
                                        nn.ReLU(True))
@@ -68,7 +70,7 @@ class _Net(nn.Module):
         self.prev_action_embedding = nn.Embedding(N_ACTS + 1, PREV_ACTION_EMBED_DIM)
         self.state_encoder = RNNStateEncoder(
             hidden_size + GOAL_EMBED_DIM + PREV_ACTION_EMBED_DIM, hidden_size,
-            NUM_RECURRENT_LAYERS)
+            num_recurrent_layers)
 
 
 class _CategoricalHead(nn.Module):
@@ -91,10 +93,11 @@ class PointNavActorCritic(nn.Module):
     observation_keys = ("depth", "pointgoal_with_gps_compass")
 
     def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
-                 baseplanes: int = 32):
+                 baseplanes: int = 32, backbone: str = "resnet18",
+                 num_recurrent_layers: int = NUM_RECURRENT_LAYERS):
         super().__init__()
         self.hidden_size = hidden_size
-        self.net = _Net(image_size, hidden_size, baseplanes)
+        self.net = _Net(image_size, hidden_size, baseplanes, backbone, num_recurrent_layers)
         self.action_distribution = _CategoricalHead(hidden_size)
         self.critic = _CriticHead(hidden_size)
 

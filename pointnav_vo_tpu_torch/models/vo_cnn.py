@@ -1,13 +1,17 @@
-"""Visual-odometry CNN (counterpart of ``models/vo_cnn.py``): whitening ->
-GroupNorm ResNet18 over the channel-stacked observation pair -> 3x3
-compression conv to ~2048 flat features -> dropout/linear trunk -> SE(2)
-delta head.
+"""Visual-odometry CNN family (counterpart of ``models/vo_cnn.py``):
+whitening -> GroupNorm ResNet backbone (any of ``resnet.BACKBONES``) over
+the channel-stacked observation pair -> 3x3 compression conv to ~2048 flat
+features -> dropout/linear trunk -> SE(2) delta head.  :class:`VOCNN` is
+the per-action expert; :class:`VOCNNActEmbed` is the unified model, whose
+trunk also reads a 32-d embedding of the action id.
 
-Dropout acts before ``visual_fc`` and before ``output_head`` when the caller
-gives keep masks or a ``torch.Generator`` to draw them from
-(:func:`draw_dropout_masks`), and only then: ``.train()`` does not switch it
-on.  The masks are explicit so that a run on the card and one on the CPU
-can share them.
+Dropout acts before the hidden linear (``visual_fc`` or
+``hidden_generator``) and before ``output_head`` when the caller gives keep
+masks or a ``torch.Generator`` to draw them from (:func:`draw_dropout_masks`),
+and only then: ``.train()`` does not switch it on.  The masks are explicit
+so that a run on the card and one on the CPU can share them.  The
+act-embed model's first mask covers the whole trunk input, features and
+embedding (``flat + 32`` wide), as the JAX module's dropout does.
 
 The encoder takes the PACKED stem input ``[B, H, W, C]`` (NHWC, as the JAX
 package's public layout): per frame rgb/255, depth, discretized depth and
@@ -17,11 +21,12 @@ CHW order, as the reference's checkpoints expect.
 
 ``compute_dtype`` is the JAX modules' ``dtype``: with ``torch.bfloat16`` the
 whitening runs in float32 and emits bfloat16, the convs, GroupNorm outputs,
-dropout and linear layers run in bfloat16 over float32 parameters, and the
-delta comes out in float32.  ``None`` computes in the parameters' dtype
-(float32, or float64 for a reference run).
+SE gates, embedding, dropout and linear layers run in bfloat16 over float32
+parameters, and the delta comes out in float32.  ``None`` computes in the
+parameters' dtype (float32, or float64 for a reference run).
 
-Only the deployed variant ``vo_cnn_rgb_d_dd_top_down`` is built here.
+:func:`make_vo_model` builds every variant of the JAX package's
+``VO_MODEL_NAMES`` by name, checking its observation space as JAX does.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pointnav_vo_tpu_torch.common import DELTA_DIM
+from pointnav_vo_tpu_torch.common import DELTA_DIM, N_ACTS
 from pointnav_vo_tpu_torch.models import resnet as resnet_lib
 from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
 
@@ -42,6 +47,7 @@ RGB_PAIR_CHANNEL = 6
 DEPTH_PAIR_CHANNEL = 2
 TOP_DOWN_VIEW_PAIR_CHANNEL = 2
 BASEPLANES = 32
+EMBED_DIM = 32  # the act-embed model's action embedding
 AFTER_COMPRESSION_FLAT_SIZE = 2048
 DROPOUT_P = 0.2  # the trunk's dropout (VO.MODEL.dropout_p)
 
@@ -56,7 +62,8 @@ class VOEncoder(nn.Module):
 
     def __init__(self, observation_space: Sequence[str], observation_size: Tuple[int, int],
                  discretized_depth_channels: int = 0,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 backbone: str = "resnet18", baseplanes: int = BASEPLANES):
         super().__init__()
         self.compute_dtype = compute_dtype
         obs = tuple(observation_space)
@@ -72,8 +79,8 @@ class VOEncoder(nn.Module):
         fh, fw = math.ceil(h / 32), math.ceil(w / 32)
         self.output_shape = (compression_channels(fh, fw), fh, fw)
         self.running_mean_and_var = RunningMeanAndVar(c)
-        self.backbone = resnet_lib.resnet18(c, base_planes=BASEPLANES,
-                                            ngroups=BASEPLANES // 2)
+        self.backbone = resnet_lib.BACKBONES[backbone](c, base_planes=baseplanes,
+                                                       ngroups=baseplanes // 2)
         ch = self.output_shape[0]
         self.compression = nn.Sequential(
             resnet_lib.Conv2d(self.backbone.final_channels, ch, 3, padding=1, bias=False),
@@ -96,27 +103,20 @@ class VOEncoder(nn.Module):
 DropoutMasks = Tuple[torch.Tensor, torch.Tensor]
 
 
-class VOCNN(nn.Module):
-    """Encoder + dropout/linear trunk + delta-pose head.
+class _VOModel(nn.Module):
+    """What the two VO models share: the encoder, the compute dtype and the
+    dropout trunk over ``hidden_layer`` and ``output_head.1``."""
 
-    Keys: ``visual_encoder.*``, ``visual_fc.2`` (Flatten, Dropout, Linear,
-    ReLU) and ``output_head.1`` (Dropout, Linear).  The Dropout entries hold
-    the key positions only; :meth:`trunk` applies the keep masks itself."""
-
-    def __init__(self, observation_space, observation_size, hidden_size: int = 512,
-                 discretized_depth_channels: int = 0, dropout_p: float = DROPOUT_P,
-                 compute_dtype: Optional[torch.dtype] = None):
+    def __init__(self, observation_space, observation_size, hidden_size: int,
+                 discretized_depth_channels: int, dropout_p: float,
+                 compute_dtype: Optional[torch.dtype], backbone: str, baseplanes: int):
         super().__init__()
         self.dropout_p = dropout_p
         self.visual_encoder = VOEncoder(observation_space, observation_size,
-                                        discretized_depth_channels, compute_dtype)
+                                        discretized_depth_channels, compute_dtype,
+                                        backbone, baseplanes)
         self.flat_size = math.prod(self.visual_encoder.output_shape)
         self.hidden_size = hidden_size
-        self.visual_fc = nn.Sequential(
-            nn.Flatten(), nn.Dropout(dropout_p), nn.Linear(self.flat_size, hidden_size),
-            nn.ReLU(True))
-        self.output_head = nn.Sequential(nn.Dropout(dropout_p),
-                                         nn.Linear(hidden_size, DELTA_DIM))
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -126,14 +126,23 @@ class VOCNN(nn.Module):
     def compute_dtype(self, dtype: Optional[torch.dtype]) -> None:
         self.visual_encoder.compute_dtype = dtype
 
+    @property
+    def trunk_width(self) -> int:
+        """Width of the trunk's input, and of its first dropout mask."""
+        return self.flat_size
+
+    def hidden_layer(self) -> nn.Linear:
+        raise NotImplementedError
+
     def trunk(self, feats: torch.Tensor, masks: Optional[DropoutMasks] = None) -> torch.Tensor:
-        """Flat features ``[n, flat]`` -> delta ``[..., n, 3]``.  ``masks``
-        (keep masks ``[..., n, flat]`` and ``[..., n, hidden]``) switch the
-        dropout on; a leading pass axis ``[k, n, ...]`` runs the k passes as
-        one batched product, each pass computed alike, so equal masks give
-        equal passes.  It computes in the features' dtype (the masks scale
-        in it, as flax's dropout does) and returns at least float32."""
-        fc, head = self.visual_fc[2], self.output_head[1]
+        """Trunk input ``[n, trunk_width]`` -> delta ``[..., n, 3]``.
+        ``masks`` (keep masks ``[..., n, trunk_width]`` and ``[..., n,
+        hidden]``) switch the dropout on; a leading pass axis ``[k, n, ...]``
+        runs the k passes as one batched product, each pass computed alike,
+        so equal masks give equal passes.  It computes in the features'
+        dtype (the masks scale in it, as flax's dropout does) and returns at
+        least float32."""
+        fc, head = self.hidden_layer(), self.output_head[1]
         if masks is None:
             out = _linear(head, torch.relu(_linear(fc, feats)))
         else:
@@ -142,6 +151,37 @@ class VOCNN(nn.Module):
             out = _linear(head, x * (masks[1].to(feats.dtype) / keep))
         return out.to(torch.promote_types(out.dtype, torch.float32))
 
+    def _masks(self, batch: int, generator: Optional[torch.Generator],
+               masks: Optional[DropoutMasks]) -> Optional[DropoutMasks]:
+        if masks is None and generator is not None:
+            masks = draw_dropout_masks(generator, (batch,), self.trunk_width,
+                                       self.hidden_size, self.dropout_p)
+        return masks
+
+
+class VOCNN(_VOModel):
+    """Encoder + dropout/linear trunk + delta-pose head.
+
+    Keys: ``visual_encoder.*``, ``visual_fc.2`` (Flatten, Dropout, Linear,
+    ReLU) and ``output_head.1`` (Dropout, Linear).  The Dropout entries hold
+    the key positions only; :meth:`trunk` applies the keep masks itself."""
+
+    def __init__(self, observation_space, observation_size, hidden_size: int = 512,
+                 discretized_depth_channels: int = 0, dropout_p: float = DROPOUT_P,
+                 compute_dtype: Optional[torch.dtype] = None, backbone: str = "resnet18",
+                 baseplanes: int = BASEPLANES):
+        super().__init__(observation_space, observation_size, hidden_size,
+                         discretized_depth_channels, dropout_p, compute_dtype, backbone,
+                         baseplanes)
+        self.visual_fc = nn.Sequential(
+            nn.Flatten(), nn.Dropout(dropout_p), nn.Linear(self.flat_size, hidden_size),
+            nn.ReLU(True))
+        self.output_head = nn.Sequential(nn.Dropout(dropout_p),
+                                         nn.Linear(hidden_size, DELTA_DIM))
+
+    def hidden_layer(self) -> nn.Linear:
+        return self.visual_fc[2]
+
     def forward(self, packed: torch.Tensor, update_stats: bool = False,
                 stats_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -149,10 +189,48 @@ class VOCNN(nn.Module):
         """Delta ``[B, 3]`` of packed pairs.  Dropout is on where ``masks``
         are given, or drawn from ``generator``; off otherwise."""
         feats = self.visual_encoder(packed, update_stats, stats_mask).flatten(1)
-        if masks is None and generator is not None:
-            masks = draw_dropout_masks(generator, (feats.shape[0],), self.flat_size,
-                                       self.hidden_size, self.dropout_p)
-        return self.trunk(feats, masks)
+        return self.trunk(feats, self._masks(feats.shape[0], generator, masks))
+
+
+class VOCNNActEmbed(_VOModel):
+    """The unified model: the features, concatenated with a 32-d embedding
+    of each row's action id, through the dropout/linear trunk.
+
+    Keys: ``visual_encoder.*``, ``action_embedding`` (``N_ACTS + 1`` rows),
+    ``hidden_generator.1`` (Dropout, Linear, ReLU) and ``output_head.1``
+    (Dropout, Linear)."""
+
+    def __init__(self, observation_space, observation_size, hidden_size: int = 512,
+                 discretized_depth_channels: int = 0, dropout_p: float = DROPOUT_P,
+                 compute_dtype: Optional[torch.dtype] = None, backbone: str = "resnet18",
+                 baseplanes: int = BASEPLANES):
+        super().__init__(observation_space, observation_size, hidden_size,
+                         discretized_depth_channels, dropout_p, compute_dtype, backbone,
+                         baseplanes)
+        self.action_embedding = nn.Embedding(N_ACTS + 1, EMBED_DIM)
+        self.hidden_generator = nn.Sequential(
+            nn.Dropout(dropout_p), nn.Linear(self.flat_size + EMBED_DIM, hidden_size),
+            nn.ReLU(True))
+        self.output_head = nn.Sequential(nn.Dropout(dropout_p),
+                                         nn.Linear(hidden_size, DELTA_DIM))
+
+    @property
+    def trunk_width(self) -> int:
+        return self.flat_size + EMBED_DIM
+
+    def hidden_layer(self) -> nn.Linear:
+        return self.hidden_generator[1]
+
+    def forward(self, packed: torch.Tensor, actions: torch.Tensor, update_stats: bool = False,
+                stats_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[DropoutMasks] = None) -> torch.Tensor:
+        """Delta ``[B, 3]`` of packed pairs and their action ids ``[B]``."""
+        feats = self.visual_encoder(packed, update_stats, stats_mask).flatten(1)
+        embed = self.action_embedding.weight.to(feats.dtype).index_select(
+            0, actions.reshape(-1).long())
+        x = torch.cat([feats, embed], dim=-1)
+        return self.trunk(x, self._masks(x.shape[0], generator, masks))
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -179,23 +257,57 @@ def draw_dropout_masks(generator: torch.Generator, lead: Tuple[int, ...], flat: 
     return draw(flat), draw(hidden)
 
 
+# The JAX package's variants: the observation keys each needs and refuses,
+# a base-width multiplier, a fixed backbone, and the act-embed model.
+_NO_DD_TD = ("discretized_depth", "top_down_view")
 _VARIANTS = {
-    "vo_cnn_rgb_d_dd_top_down": ("rgb", "depth", "discretized_depth", "top_down_view"),
+    "vo_cnn": dict(requires=("rgb", "depth"), forbids=_NO_DD_TD),
+    "vo_cnn_rgb": dict(requires=("rgb",), forbids=("depth",) + _NO_DD_TD),
+    "vo_cnn_wider": dict(requires=("rgb", "depth"), forbids=_NO_DD_TD, baseplanes_mult=2),
+    "vo_cnn_deeper": dict(requires=("rgb", "depth"), forbids=_NO_DD_TD, backbone="resnet101"),
+    "vo_cnn_rgb_d_dd": dict(requires=("rgb", "depth", "discretized_depth"),
+                            forbids=("top_down_view",)),
+    "vo_cnn_rgb_d_top_down": dict(requires=("rgb", "depth", "top_down_view"),
+                                  forbids=("discretized_depth",)),
+    "vo_cnn_rgb_dd_top_down": dict(requires=("rgb", "discretized_depth", "top_down_view"),
+                                   forbids=("depth",)),
+    "vo_cnn_d_dd_top_down": dict(requires=("depth", "discretized_depth", "top_down_view"),
+                                 forbids=("rgb",)),
+    "vo_cnn_rgb_d_dd_top_down": dict(
+        requires=("rgb", "depth", "discretized_depth", "top_down_view"), forbids=()),
+    # the reference's legacy alias of the model above
+    "vo_cnn_discretize_depth_top_down": dict(
+        requires=("rgb", "depth", "discretized_depth", "top_down_view"), forbids=()),
+    "vo_cnn_act_embed": dict(requires=("rgb", "depth"), forbids=_NO_DD_TD, act_embed=True),
+    "vo_cnn_wider_act_embed": dict(requires=("rgb", "depth"), forbids=_NO_DD_TD,
+                                   act_embed=True, baseplanes_mult=2),
 }
 VO_MODEL_NAMES = tuple(_VARIANTS)
 
 
 def make_vo_model(name: str, *, observation_space: Sequence[str],
                   observation_size: Tuple[int, int], hidden_size: int = 512,
+                  backbone: str = "resnet18", baseplanes: int = BASEPLANES,
                   discretized_depth_channels: int = 10,
                   dropout_p: float = DROPOUT_P,
-                  compute_dtype: Optional[torch.dtype] = None) -> VOCNN:
-    """Build a registered VO variant by its reference name."""
+                  compute_dtype: Optional[torch.dtype] = None) -> _VOModel:
+    """Build a registered VO variant by its reference name.  The variant may
+    fix the backbone (``vo_cnn_deeper``: ResNet-101) and scale
+    ``baseplanes`` (the wider ones: 2x)."""
     if name not in _VARIANTS:
-        raise ValueError(f"VO variant {name!r} is not ported; have {tuple(_VARIANTS)}")
+        raise ValueError(f"unknown VO variant {name!r}; have {VO_MODEL_NAMES}")
+    spec = _VARIANTS[name]
     obs = tuple(observation_space)
-    if set(obs) != set(_VARIANTS[name]):
-        raise ValueError(f"{name} needs observation_space {_VARIANTS[name]}, got {obs}")
-    return VOCNN(obs, tuple(observation_size), hidden_size,
-                 discretized_depth_channels=discretized_depth_channels, dropout_p=dropout_p,
-                 compute_dtype=compute_dtype)
+    for k in spec["requires"]:
+        if k not in obs:
+            raise ValueError(f"{name} requires {k!r} in observation_space, got {obs}")
+    for k in spec["forbids"]:
+        if k in obs:
+            raise ValueError(f"{name} forbids {k!r} in observation_space, got {obs}")
+    cls = VOCNNActEmbed if spec.get("act_embed") else VOCNN
+    return cls(obs, tuple(observation_size), hidden_size,
+               discretized_depth_channels=(discretized_depth_channels
+                                           if "discretized_depth" in obs else 0),
+               dropout_p=dropout_p, compute_dtype=compute_dtype,
+               backbone=spec.get("backbone", backbone),
+               baseplanes=baseplanes * spec.get("baseplanes_mult", 1))

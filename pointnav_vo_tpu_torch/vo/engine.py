@@ -3,8 +3,10 @@
 One :class:`~pointnav_vo_tpu_torch.models.vo_cnn.VOCNN` expert per trained
 action: the forward stage trains one (``action_type: 1``), the joint turn
 stage two (``action_type: [2, 3]``) tied by the geometric-invariance
-inverse loss (``geo_invariance_types: ["inverse_joint_train"]``).  Each
-train step, on the device:
+inverse loss (``geo_invariance_types: ["inverse_joint_train"]``).
+``action_type: -1`` trains one unified expert that owns every row: the
+act-embed model (``VOCNNActEmbed``, which reads each row's action id) or a
+plain ``VOCNN``.  Each train step, on the device:
 
 1. frame features of every frame in the batch, once each (depth
    discretisation and the top-down projection through ``bin_counts``; a
@@ -52,7 +54,7 @@ from pointnav_vo_tpu_torch.io.checkpoint import (
     save_checkpoint,
 )
 from pointnav_vo_tpu_torch.io.weights import seeded_init_
-from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN
+from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN, VOCNNActEmbed
 from pointnav_vo_tpu_torch.vo import losses as losses_lib
 from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader
 from pointnav_vo_tpu_torch.vo.ensemble import (
@@ -179,6 +181,14 @@ def attach_expert_buckets(arrs: Mapping[str, torch.Tensor], actions_np,
     return out
 
 
+def apply_vo_model(model, obs: torch.Tensor, actions: torch.Tensor, **kw) -> torch.Tensor:
+    """``model``'s forward on packed pairs: the act-embed model also
+    takes the rows' action ids."""
+    if isinstance(model, VOCNNActEmbed):
+        return model(obs, actions, **kw)
+    return model(obs, **kw)
+
+
 def forward_experts(experts: Sequence[VOCNN], obs: torch.Tensor,
                     arrs: Mapping[str, torch.Tensor], update_stats: bool,
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -196,8 +206,9 @@ def forward_experts(experts: Sequence[VOCNN], obs: torch.Tensor,
                 rmv = expert.visual_encoder.running_mean_and_var
                 rmv(obs.new_zeros((0, obs.shape[-1], 1, 1)), True, own)
             continue
-        pred = expert(obs.index_select(0, idx), update_stats=update_stats,
-                      stats_mask=own, generator=generator)
+        pred = apply_vo_model(expert, obs.index_select(0, idx),
+                              arrs["actions"].index_select(0, idx),
+                              update_stats=update_stats, stats_mask=own, generator=generator)
         out = out.index_copy(0, idx, pred.to(out.dtype))
     return out
 

@@ -39,11 +39,13 @@ from pointnav_vo_tpu_torch.models.vo_cnn import (
     DROPOUT_P,
     VOCNN,
     DropoutMasks,
+    VOCNNActEmbed,
     draw_dropout_masks,
     make_vo_model,
 )
 from pointnav_vo_tpu_torch.ops.depth import discretize_depth
 from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
+from pointnav_vo_tpu_torch.ops.transforms import TRANSFORMS, apply_obs_transform
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +58,10 @@ class VOInferenceConfig:
     vis_size_w: int = 341
     vis_size_h: int = 192
     hidden_size: int = 512
+    backbone: str = "resnet18"
     discretized_depth_channels: int = 10
+    # VO.OBS_TRANSFORM: "none" | "resize" | "resize_crop" | "resize_nearest"
+    obs_transform: str = "none"
     min_depth: float = 0.1
     max_depth: float = 10.0
     hfov: float = 70.0  # consumed as "radians": the reference's quirk
@@ -74,6 +79,9 @@ class VOInferenceConfig:
             raise ValueError(f"precision must be 'fp32' or 'bf16', got {self.precision!r}")
         if self.cache_dtype not in ("native", "int8"):
             raise ValueError(f"cache_dtype must be 'native' or 'int8', got {self.cache_dtype!r}")
+        if self.obs_transform not in TRANSFORMS:
+            raise ValueError(f"obs_transform must be one of {TRANSFORMS}, "
+                             f"got {self.obs_transform!r}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -98,6 +106,7 @@ class VOInferenceConfig:
             observation_space=self.observation_space,
             observation_size=(self.vis_size_w, self.vis_size_h),
             hidden_size=self.hidden_size,
+            backbone=self.backbone,
             discretized_depth_channels=self.discretized_depth_channels,
             dropout_p=self.dropout_p,
             compute_dtype=self.model_dtype,
@@ -109,9 +118,14 @@ def frame_features(rgb: torch.Tensor, depth: torch.Tensor,
     """Per-frame channels: rgb ``[B,H,W,3]``, depth ``[B,H,W,1]``,
     discretized_depth ``[B,H,W,dd]``, top_down_view ``[B,H,W,1]``; computed
     in float32 (the top-down counts binned, then normalised), emitted in
-    the compute dtype."""
+    the compute dtype.  ``cfg.obs_transform`` resizes the stacked rgb and
+    depth first, so every feature is derived from the resized depth."""
     rgb = rgb.float()
     depth = depth.float()
+    if cfg.obs_transform != "none":
+        stacked = apply_obs_transform(torch.cat([rgb, depth], dim=-1), cfg.obs_transform,
+                                      (cfg.vis_size_w, cfg.vis_size_h))
+        rgb, depth = stacked[..., :3], stacked[..., 3:]
     feats: Dict[str, torch.Tensor] = {}
     if "rgb" in cfg.observation_space:
         feats["rgb"] = rgb
@@ -247,7 +261,9 @@ class VOEnsemble:
                  device=None, experts: Sequence[VOCNN] = None):
         """Pass ``state_dicts`` (one per expert, in VO_EXPERT_ACTIONS order;
         loaded with ``strict=True``) or ready ``experts`` modules built for
-        ``cfg``'s precision (:func:`check_compute_dtype`)."""
+        ``cfg``'s precision (:func:`check_compute_dtype`).  An act-embed
+        variant is refused: the ensemble runs one expert per action and
+        passes no action ids, as the JAX ensemble does."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if experts is None:
@@ -258,6 +274,9 @@ class VOEnsemble:
                 m = cfg.make_model()
                 m.load_state_dict(sd, strict=True)
                 experts.append(m)
+        if any(isinstance(m, VOCNNActEmbed) for m in experts):
+            raise ValueError(f"VOEnsemble runs per-action experts; the act-embed variant "
+                             f"{cfg.model_name!r} cannot be one")
         check_compute_dtype(experts, cfg)
         self.experts = [m.to(self.device).eval() for m in experts]
 

@@ -143,10 +143,9 @@ def test_config_freeze_defrost_and_new_key_warning():
 
 
 def test_registry_names_match_jax():
-    for ns in ("trainer", "env", "policy", "vo_engine"):
+    for ns in ("trainer", "env", "policy", "vo_engine", "vo_model"):
         assert registry.names(ns) == jregistry.names(ns), ns
-    assert set(registry.names("vo_model")) <= set(jregistry.names("vo_model"))
-    assert registry.names("vo_model") == ["vo_cnn_rgb_d_dd_top_down"]
+    assert len(registry.names("vo_model")) == 12
 
 
 @pytest.mark.parametrize("noisy", [True, False])
@@ -175,8 +174,8 @@ def _jax_policy():
     return jpol, variables
 
 
-def _jax_experts():
-    jcfg = JCfg(vis_size_w=S, vis_size_h=S, hidden_size=HIDDEN)
+def _jax_experts(**kw):
+    jcfg = JCfg(vis_size_w=S, vis_size_h=S, hidden_size=HIDDEN, **kw)
     model = jcfg.make_model()
     dummy = {"rgb": jnp.zeros((1, S, S, 6)), "depth": jnp.zeros((1, S, S, 2)),
              "discretized_depth": jnp.zeros((1, S, S, 20)),
@@ -545,21 +544,15 @@ def test_more_than_one_device_raises(tmp_path):
 # ---------------------------------------------------------------- VO CLI
 
 
-@pytest.fixture(scope="module")
-def vo_runs(weights, tmp_path_factory):
-    """One epoch of the forward stage from the same ``.pth`` expert, then
-    eval from the checkpoint, through both CLIs."""
-    root = tmp_path_factory.mktemp("vo")
-    data = str(root / "pairs.h5")
-    generate_scripted_dataset(data, 40, env_cfg=JEnvConfig(image_h=S, image_w=S,
-                                                           max_episode_steps=40), seed=0)
+def _vo_train_eval(root, data, model_opts):
+    """One epoch from the same ``.pth`` expert, then eval from the
+    checkpoint, through both CLIs."""
     train_opts = [
         "VO.VIS_SIZE_W", str(S), "VO.VIS_SIZE_H", str(S), "VO.MODEL.hidden_size", str(HIDDEN),
         "VO.MODEL.dropout_p", "0.0", "VO.MODEL.pretrained", "True",
-        "VO.MODEL.pretrained_ckpt", f"{{forward: {weights['paths']['forward']}}}",
-        "VO.TRAIN.batch_size", "8", "VO.TRAIN.epochs", "1", "VO.TRAIN.action_type", "1",
+        "VO.TRAIN.batch_size", "8", "VO.TRAIN.epochs", "1",
         "VO.DATASET.TRAIN_WITH_NOISE", data, "VO.DATASET.EVAL_WITH_NOISE", data,
-        "LOG_INTERVAL", "1"]
+        "LOG_INTERVAL", "1", *model_opts]
     out = {}
     for name, main, port, ext in (("jax", jrun.main, False, "pkl"),
                                   ("port", trun.main, True, "pth")):
@@ -582,6 +575,22 @@ def vo_runs(weights, tmp_path_factory):
         assert record == metrics
         out[name] = {"train": json.loads(train_stats[-1]), "eval": metrics, "ckpt": ckpt}
     return out
+
+
+@pytest.fixture(scope="module")
+def vo_data(tmp_path_factory):
+    data = str(tmp_path_factory.mktemp("vo_data") / "pairs.h5")
+    generate_scripted_dataset(data, 40, env_cfg=JEnvConfig(image_h=S, image_w=S,
+                                                           max_episode_steps=40), seed=0)
+    return data
+
+
+@pytest.fixture(scope="module")
+def vo_runs(weights, vo_data, tmp_path_factory):
+    """The forward stage from the same ``.pth`` expert, both CLIs."""
+    return _vo_train_eval(tmp_path_factory.mktemp("vo"), vo_data, [
+        "VO.MODEL.pretrained_ckpt", f"{{forward: {weights['paths']['forward']}}}",
+        "VO.TRAIN.action_type", "1"])
 
 
 VO_RTOL = 1e-4  # fp32 conv and GroupNorm sums in another order, one epoch of Adam
@@ -640,6 +649,72 @@ def test_port_vo_checkpoint_loads_as_an_expert(vo_runs):
         load_vo_checkpoint(ckpt, 2)
     model = VOInferenceConfig(vis_size_w=S, vis_size_h=S, hidden_size=HIDDEN).make_model()
     model.load_state_dict(load_vo_checkpoint(ckpt, 1), strict=True)
+
+
+# ---------------------------------------------------------------- the zoo
+
+
+@pytest.fixture(scope="module")
+def zoo_weights(tmp_path_factory):
+    """JAX-initialised ResNet-50 experts and a unified act-embed model,
+    written as reference ``.pth`` files by the JAX exporter."""
+    d = tmp_path_factory.mktemp("zoo_weights")
+    _, experts = _jax_experts(backbone="resnet50")
+    paths = {"forward": str(d / "act_forward_r50.pth"),
+             "left_right": str(d / "act_left_right_r50.pth"),
+             "act_embed": str(d / "act_embed.pth")}
+    save_vo_checkpoint_torch(paths["forward"], {1: experts[0]})
+    save_vo_checkpoint_torch(paths["left_right"], {2: experts[1], 3: experts[2]})
+    model = JCfg(model_name="vo_cnn_act_embed", observation_space=("rgb", "depth"),
+                 vis_size_w=S, vis_size_h=S, hidden_size=HIDDEN).make_model()
+    dummy = {"rgb": jnp.zeros((1, S, S, 6)), "depth": jnp.zeros((1, S, S, 2))}
+    save_vo_checkpoint_torch(paths["act_embed"], jax.tree.map(np.asarray, fast_init(
+        model, dummy, jnp.zeros((1,), jnp.int32), train=False, seed=20)))
+    return paths
+
+
+def test_rl_eval_cli_on_a_zoo_backbone_with_obs_transform_matches_jax(weights, zoo_weights,
+                                                                        tmp_path):
+    """ResNet-50 experts behind ``VO.OBS_TRANSFORM resize``: 48x48 sensors,
+    resized to the experts' 32x32, through both CLIs on the same ``.pth``
+    files."""
+    paths = dict(weights["paths"], forward=zoo_weights["forward"],
+                 left_right=zoo_weights["left_right"])
+    sensors = [f"TASK_CONFIG.SIMULATOR.{sensor}_SENSOR.{side}" for sensor in ("DEPTH", "RGB")
+               for side in ("HEIGHT", "WIDTH")]
+    opts = _rl_opts(paths, weights["paths"]["policy"]) + [
+        "VO.REGRESS_MODEL.visual_backbone", "resnet50", "VO.OBS_TRANSFORM", "resize",
+        *[x for key in sensors for x in (key, "48")]]
+    _cli(jrun.main, tmp_path / "jax", "rl", "eval", opts)
+    metrics = _cli(trun.main, tmp_path / "port", "rl", "eval", opts, port=True)
+    got, want = (_eval_outputs(_last_run(tmp_path / side, "rl-eval"), "rl_policy")
+                 for side in ("port", "jax"))
+    _assert_eval_matches(got, want)
+    assert metrics["episodes"] == EPISODES and got[0]["total_env_steps"] > 2 * EPISODES
+
+
+@pytest.fixture(scope="module")
+def vo_act_embed_runs(zoo_weights, vo_data, tmp_path_factory):
+    """The unified act-embed model (``action_type -1``, rgb and depth) from
+    the same ``.pth``, both CLIs."""
+    return _vo_train_eval(tmp_path_factory.mktemp("vo_act_embed"), vo_data, [
+        "VO.MODEL.name", "vo_cnn_act_embed", "VO.MODEL.visual_type", "[rgb, depth]",
+        "VO.MODEL.pretrained_ckpt", f"{{forward: {zoo_weights['act_embed']}}}",
+        "VO.TRAIN.action_type", "-1"])
+
+
+def test_vo_cli_act_embed_unified_matches_jax(vo_act_embed_runs):
+    got, want = vo_act_embed_runs["port"], vo_act_embed_runs["jax"]
+    np.testing.assert_allclose(got["train"]["mean_total_loss"], want["train"]["mean_total_loss"],
+                               rtol=VO_RTOL)
+    assert got["eval"]["eval_samples"] == want["eval"]["eval_samples"]
+    assert {k for k in want["eval"] if k.startswith("act")} == {
+        f"act{a}/abs_diff_{d}" for a in (1, 2, 3) for d in ("dx", "dz", "dyaw")}
+    for k in want["eval"]:
+        np.testing.assert_allclose(got["eval"][k], want["eval"][k], rtol=VO_RTOL, err_msg=k)
+    state = load_checkpoint(got["ckpt"])
+    assert state["train_config"]["action_type"] == -1
+    assert "action_embedding.weight" in state["experts"][0]
 
 
 # ---------------------------------------------------------------- sweep

@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from pointnav_vo_tpu.models.policy import PointNavActorCritic as JPolicy
+from pointnav_vo_tpu.models.vo_cnn import VO_MODEL_NAMES as J_VO_MODEL_NAMES
+from pointnav_vo_tpu.models.vo_cnn import make_vo_model as j_make_vo_model
 from pointnav_vo_tpu.models.policy import action_log_prob as j_logp
 from pointnav_vo_tpu.models.policy import mode_action as j_mode
 from pointnav_vo_tpu.vo.ensemble import VOInferenceConfig as JCfg
@@ -21,7 +23,7 @@ from pointnav_vo_tpu_torch.io.weights import (
 from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic as TPolicy
 from pointnav_vo_tpu_torch.models.policy import action_log_prob as t_logp
 from pointnav_vo_tpu_torch.models.policy import mode_action as t_mode
-from pointnav_vo_tpu_torch.models.vo_cnn import make_vo_model
+from pointnav_vo_tpu_torch.models.vo_cnn import VO_MODEL_NAMES, make_vo_model
 from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig as TCfg
 
 from _utils import fast_init
@@ -122,9 +124,20 @@ def test_full_width_shapes():
 
 
 def test_make_vo_model_rejects_unported_variants():
-    with pytest.raises(ValueError):
-        make_vo_model("vo_cnn", observation_space=("rgb", "depth"),
+    """Every JAX variant is built; a name JAX does not register is refused,
+    and so is an observation space that JAX's ``requires``/``forbids``
+    checks refuse (here the paper model without the top-down view, and
+    ``vo_cnn`` with it)."""
+    assert VO_MODEL_NAMES == J_VO_MODEL_NAMES
+    with pytest.raises(KeyError):
+        j_make_vo_model("vo_cnn_unknown", observation_space=("rgb", "depth"),
+                        observation_size=(32, 32))
+    with pytest.raises(ValueError, match="unknown VO variant"):
+        make_vo_model("vo_cnn_unknown", observation_space=("rgb", "depth"),
                       observation_size=(32, 32))
-    with pytest.raises(ValueError):
-        make_vo_model("vo_cnn_rgb_d_dd_top_down", observation_space=("rgb", "depth"),
-                      observation_size=(32, 32))
+    for name, obs in (("vo_cnn_rgb_d_dd_top_down", ("rgb", "depth", "discretized_depth")),
+                      ("vo_cnn", ("rgb", "depth", "top_down_view"))):
+        with pytest.raises(AssertionError):
+            j_make_vo_model(name, observation_space=obs, observation_size=(32, 32))
+        with pytest.raises(ValueError, match=name):
+            make_vo_model(name, observation_space=obs, observation_size=(32, 32))
