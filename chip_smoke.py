@@ -95,7 +95,7 @@ Phases, each printing a line; any failure exits non-zero:
    (32 worker processes) with the greedy goal policy (a 30-step cap),
    ``bin_counts`` launched exactly once per step plus one;
 11. the evaluator's host side at full width (phase 3's seeded fp32 models,
-   32 envs, a 20-step cap): the host's CPU count and affinity, its
+   32 envs, a 10-step cap): the host's CPU count and affinity, its
    ``/dev/shm`` size and the rings' bytes; (a) ``Evaluator.run`` in
    process, over ``ShmVectorEnv`` (32 forked workers, made after the card
    is in use) and over it with ``PNVO_EVAL_ASYNC=1``: the farm runs'
@@ -128,7 +128,25 @@ Phases, each printing a line; any failure exits non-zero:
    both sides; (e) phase 3's fused det eval built through ``engines.py``
    from a config with ResNet-50 VO experts, a ResNet-50 policy and
    ``VO.OBS_TRANSFORM resize_crop`` over 256x256 renders: steps + 1
-   launches, one step held against the CPU (actions equal).
+   launches, one step held against the CPU (actions equal);
+13. the policy family and the classical VO backend at full width (fp32,
+   TF32 off, seeded weights): (a) the rgb-d ResNet18 + 2-layer LSTM
+   policy with whitening through the train CLI (2 updates of 128 steps
+   over 2 envs, det VO in the loop): exactly 257 launches, the whitening
+   buffers' count exactly envs x steps x updates, one rollout step (the
+   buffers folded) held against the CPU, a fixed rollout's loss over 4
+   updates (it must fall); (b) the depth ResNet18 policy with a 2-layer
+   GRU in phase 3's det eval (steps + 1 launches, one fused step against
+   the CPU) and one ``ppo_loss`` gradient against the CPU (phase 7's
+   gate); (c) the SimpleCNN + GRU baseline through the CLI: train (257
+   launches, a rollout step against the CPU), eval from its checkpoint
+   (steps + 1), its fused step against the CPU, and phase 9's agent
+   episode with it; (d) phase 3's eval with ``VO.VO_TYPE CLASSICAL``
+   through ``engines.py``: no launch, the share of env steps whose ORB
+   match was accepted, host ms a step, and the batched weighted Kabsch
+   over 32 envs of 8-500 synthetic matched points held against the CPU
+   (rtol 1e-4, atol 1e-5) and timed. Each path's step or update ms (CUDA
+   events) and peak memory.
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -190,11 +208,14 @@ BF16_TENSOR_FLOOR = 5e-2
 E994_PAIRS, E994_EVAL_PAIRS, E994_EPOCHS = 600, 64, 1  # phase 10
 E994_EPISODES, E994_CAP = 32, 30
 BF16_EVAL_CAP = 10  # phase 3 in bf16: the episode cap of its Evaluator.run
-FARM_CAP = 20  # phase 11: phase 3's episode cap
+FARM_CAP = 10  # phase 11: the episode cap (half phase 3's: the script's time)
 FARM_SLOTS = 4  # payloads a worker's ring holds (ShmVectorEnv's default)
 ZOO_PARITY_BATCH = 8  # phase 12: card-vs-CPU forwards and the train steps held against float64
 ZOO_TIME_BATCH = 128  # phase 12 (a): the timed no-grad forward
 ZOO_SENSOR = 256  # phase 12 (e): the envs' render size, resized by VO.OBS_TRANSFORM
+POLICY_UPDATES = 2  # phase 13 (a), (c): NUM_UPDATES of the train runs
+KABSCH_ENVS = 32  # phase 13 (d): the batched Kabsch's envs, 8-500 matched points each
+KABSCH_POINTS = (8, 500)
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -435,9 +456,10 @@ def phase_kernel(dev):
     return max_err, timings
 
 
-def _build_models(cfg, dev, seed):
-    """Three VO experts and the policy with seeded random weights; returns
-    (card ensemble, card policy, CPU copies of both)."""
+def _build_models(cfg, dev, seed, **policy_kw):
+    """Three VO experts and the policy (``PointNavActorCritic`` with
+    ``policy_kw``) with seeded random weights; returns (card ensemble, card
+    policy, CPU copies of both)."""
     import torch
 
     from pointnav_vo_tpu_torch.io.weights import seeded_init_
@@ -446,7 +468,7 @@ def _build_models(cfg, dev, seed):
 
     g = torch.Generator().manual_seed(seed)
     experts = [seeded_init_(cfg.make_model(), g) for _ in range(3)]
-    policy = seeded_init_(PointNavActorCritic(image_size=(H, W)), g).eval()
+    policy = seeded_init_(PointNavActorCritic(image_size=(H, W), **policy_kw), g).eval()
     cpu_vo = VOEnsemble(cfg, experts=[copy.deepcopy(m) for m in experts], device="cpu")
     cpu_policy = copy.deepcopy(policy)
     return (VOEnsemble(cfg, experts=experts, device=dev), policy.to(dev),
@@ -1155,9 +1177,10 @@ def phase_train(dev, card):
     return records
 
 
-def _rl_trainer(dev, num_steps, seed):
-    """The RL config at full width with seeded weights: the depth policy,
-    three det VO experts in the loop, 2 scripted envs."""
+def _rl_trainer(dev, num_steps, seed, policy=None):
+    """The RL config at full width with seeded weights: ``policy`` (the
+    depth policy where None), three det VO experts in the loop, 2 scripted
+    envs."""
     import torch
 
     from pointnav_vo_tpu_torch.io.weights import seeded_init_
@@ -1178,7 +1201,8 @@ def _rl_trainer(dev, num_steps, seed):
     vo = VOEnsemble(vo_cfg, experts=[seeded_init_(vo_cfg.make_model(), g) for _ in range(3)],
                     device=dev)
     envs = make_scripted_vector_env(EnvConfig(image_h=H, image_w=W), RL_ENVS, seed=seed)
-    return DDPPOTrainer(model=PointNavActorCritic(image_size=(H, W)), ppo_cfg=cfg, envs=envs,
+    policy = PointNavActorCritic(image_size=(H, W)) if policy is None else policy
+    return DDPPOTrainer(model=policy, ppo_cfg=cfg, envs=envs,
                         device=dev, init_generator=g,
                         generator=torch.Generator(device=dev).manual_seed(seed),
                         vo_ensemble=vo)
@@ -1212,12 +1236,13 @@ def _with_returns(trainer):
     return trainer.rollouts.compute_returns(next_value, cfg.use_gae, cfg.gamma, cfg.tau)
 
 
-def _rl_step_vs_cpu(dev, trainer):
+def _rl_step_vs_cpu(dev, trainer, tag="rl"):
     """One rollout step's pieces on the card and the CPU from the same
-    inputs (step 0 -> 1 of the trainer's stored rollout): the mode action
-    of the policy, the det VO delta of the cached step and the
-    dead-reckoned goal.  Actions equal, the rest within rtol 1e-3 / atol
-    1e-4."""
+    inputs (step 0 -> 1 of the trainer's stored rollout, copies of its
+    policy): the mode action of the policy (folding the frames into the
+    whitening buffers where the trainer's rollout does), the det VO delta
+    of the cached step and the dead-reckoned goal.  Actions equal, the rest
+    (the updated buffers too) within rtol 1e-3 / atol 1e-4."""
     import torch
 
     from pointnav_vo_tpu_torch.ops.geometry import pointgoal_polar2cartesian
@@ -1229,7 +1254,8 @@ def _rl_step_vs_cpu(dev, trainer):
     actions_np = r.actions[0, :, 0].cpu().numpy()
     runs = {}
     for name, device, model, vo in (
-            ("card", dev, trainer.model, trainer.vo),
+            # .to: cuDNN's flat RNN weights
+            ("card", dev, copy.deepcopy(trainer.model).to(dev), trainer.vo),
             ("cpu", cpu, copy.deepcopy(trainer.model).to(cpu),
              VOEnsemble(trainer.vo.cfg, experts=[copy.deepcopy(m).to(cpu)
                                                  for m in trainer.vo.experts], device=cpu))):
@@ -1237,7 +1263,8 @@ def _rl_step_vs_cpu(dev, trainer):
         obs1 = {k: v[1].to(device) for k, v in r.observations.items()}
         value, action, logp, hidden = act_step(model, obs0, r.hidden_states[0].to(device),
                                                r.prev_actions[0].to(device),
-                                               r.masks[0].to(device))
+                                               r.masks[0].to(device),
+                                               update_stats=trainer.update_stats)
         feats = frame_features_packed(obs0["rgb"], obs0["depth"], vo.cfg)
         delta, _ = vo.predict_step_cached(feats, obs1["rgb"], obs1["depth"], actions_np)
         goal, polar = propagate_goal(pointgoal_polar2cartesian(obs0["pointgoal_with_gps_compass"]),
@@ -1245,6 +1272,8 @@ def _rl_step_vs_cpu(dev, trainer):
                                      obs1["pointgoal_with_gps_compass"])
         runs[name] = {"value": value, "action": action, "logp": logp, "hidden": hidden,
                       "delta": delta, "goal_cart": goal, "polar": polar}
+        runs[name].update({k.rsplit(".", 1)[-1]: v for k, v in model.state_dict().items()
+                           if "running_mean_and_var" in k})
     errs = {}
     for k, w in runs["cpu"].items():
         g = runs["card"][k].cpu()
@@ -1253,13 +1282,13 @@ def _rl_step_vs_cpu(dev, trainer):
             if not torch.equal(g, w):
                 raise AssertionError("card and CPU rollout actions differ")
         elif not torch.allclose(g, w, rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"card vs CPU rollout step {k}: max abs err {errs[k]}")
-    _log("rl", "card vs CPU rollout step (rtol 1e-3, atol 1e-4; actions equal): "
-               + json.dumps(errs, sort_keys=True))
+            raise AssertionError(f"{tag}: card vs CPU rollout step {k}: max abs err {errs[k]}")
+    _log(tag, "card vs CPU rollout step (rtol 1e-3, atol 1e-4; actions equal): "
+              + json.dumps(errs, sort_keys=True))
     return errs
 
 
-def _rl_grad_vs_cpu(dev, trainer):
+def _rl_grad_vs_cpu(dev, trainer, tag="rl"):
     """``ppo_loss`` and its gradients on the trainer's whole rollout (one
     minibatch of every env) on the card, on the CPU in float32 and on the
     CPU in float64 as the reference.  Loss: card vs CPU rtol 1e-4.  Each
@@ -1283,7 +1312,7 @@ def _rl_grad_vs_cpu(dev, trainer):
         runs[name] = (float(total.detach()), {k: p.grad for k, p in model.named_parameters()})
     (loss_card, card), (loss_cpu, cpu), (loss_64, cpu64) = runs.values()
     if abs(loss_card - loss_cpu) > 1e-4 * abs(loss_cpu):
-        raise AssertionError(f"rl: card ppo_loss {loss_card} vs CPU {loss_cpu}")
+        raise AssertionError(f"{tag}: card ppo_loss {loss_card} vs CPU {loss_cpu}")
 
     def errs(a, b):
         a, b = a.detach().cpu().double(), b.detach().cpu().double()
@@ -1298,13 +1327,42 @@ def _rl_grad_vs_cpu(dev, trainer):
             e = errs(a, b)
             worst[key] = [max(w, x) for w, x in zip(worst[key], e)]
             if key == "card_vs_cpu" and e[0] > 5e-2:
-                raise AssertionError(f"rl: gradient of {name}: relative L2 error {e[0]} "
+                raise AssertionError(f"{tag}: gradient of {name}: relative L2 error {e[0]} "
                                      "card vs CPU")
-    _log("rl", f"card vs CPU ppo_loss gradient, T={rollouts.num_steps} N={rollouts.num_envs}: "
-               f"loss {loss_card:.8f} (CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst "
-               "gradient error over tensors [relative L2, max abs / max abs]: "
-               + json.dumps(worst))
+    _log(tag, f"card vs CPU ppo_loss gradient, T={rollouts.num_steps} N={rollouts.num_envs}: "
+              f"loss {loss_card:.8f} (CPU {loss_cpu:.8f}, float64 {loss_64:.8f}); worst "
+              "gradient error over tensors [relative L2, max abs / max abs]: "
+              + json.dumps(worst))
     return {"loss": [loss_card, loss_cpu, loss_64], "worst_gradient_error": worst}
+
+
+def _fixed_rollout_losses(dev, trainer, tag="rl"):
+    """The loss of one fresh rollout over RL_FIXED_UPDATES successive
+    updates on it, by a copy of the trainer's policy; it must fall."""
+    import torch
+
+    from pointnav_vo_tpu_torch.rl.ppo import make_optimizer, ppo_loss, ppo_update
+
+    trainer.collect_rollout()
+    rollouts = _with_returns(trainer)
+    model = copy.deepcopy(trainer.model).to(dev)  # .to: cuDNN's flat RNN weights
+    opt = make_optimizer(model.parameters(), trainer.cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(ppo_loss(model, trainer.cfg, _full_minibatch(rollouts, model),
+                                  trainer.cfg.clip_param)[0])
+
+    losses = [fixed_loss()]
+    for _ in range(RL_FIXED_UPDATES):
+        ppo_update(model, trainer.cfg, opt, rollouts, generator=gen)
+        losses.append(fixed_loss())
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{tag}: the fixed rollout's loss did not fall: {losses}")
+    _log(tag, f"fixed rollout, loss before and after each of {RL_FIXED_UPDATES} updates: "
+              + " ".join(f"{x:.6f}" for x in losses))
+    return losses
 
 
 def phase_train_rl(dev, card):
@@ -1312,7 +1370,6 @@ def phase_train_rl(dev, card):
     import torch
 
     from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
-    from pointnav_vo_tpu_torch.rl.ppo import make_optimizer, ppo_loss, ppo_update
 
     trainer = _rl_trainer(dev, RL_STEPS, SEED + 20)
     storage_gib = _storage_bytes(trainer.rollouts) / 2**30
@@ -1354,26 +1411,7 @@ def phase_train_rl(dev, card):
                f"env step and upload included), update_agent {update_ms:.3f} ms "
                f"({RL_STEPS * RL_ENVS} frames in {trainer.cfg.num_mini_batch} minibatches)")
 
-    # the loss of one fixed rollout over successive updates on it
-    trainer.collect_rollout()
-    rollouts = _with_returns(trainer)
-    model = copy.deepcopy(trainer.model).to(dev)  # .to: cuDNN's flat LSTM weights
-    opt = make_optimizer(model.parameters(), trainer.cfg)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def fixed_loss():
-        with torch.no_grad():
-            return float(ppo_loss(model, trainer.cfg, _full_minibatch(rollouts, model),
-                                  trainer.cfg.clip_param)[0])
-
-    losses = [fixed_loss()]
-    for _ in range(RL_FIXED_UPDATES):
-        ppo_update(model, trainer.cfg, opt, rollouts, generator=gen)
-        losses.append(fixed_loss())
-    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
-        raise AssertionError(f"rl: the fixed rollout's loss did not fall: {losses}")
-    _log("rl", f"fixed rollout, loss before and after each of {RL_FIXED_UPDATES} updates: "
-               + " ".join(f"{x:.6f}" for x in losses))
+    losses = _fixed_rollout_losses(dev, trainer)
 
     # card vs CPU on a short rollout, then the per-step profile on it
     short = _rl_trainer(dev, RL_PARITY_STEPS, SEED + 21)
@@ -1558,14 +1596,21 @@ def phase_agent(dev, card):
     on a scripted env, held step by step against the same agent on the CPU."""
     import torch
 
-    from pointnav_vo_tpu_torch.deploy.challenge_agent import PointNavVOAgent
-    from pointnav_vo_tpu_torch.ops import geometry as geo
-    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
-    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
     from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
 
     cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
     vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED + 30)
+    return _agent_episode(dev, card, vo, policy, cpu_vo, cpu_policy, SEED + 30, "agent")
+
+
+def _agent_episode(dev, card, vo, policy, cpu_vo, cpu_policy, seed, tag):
+    """Phase 9's episode with the given models (card and CPU copies)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.deploy.challenge_agent import PointNavVOAgent
+    from pointnav_vo_tpu_torch.ops import geometry as geo
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
 
     def plan_bias(i):
         bias = torch.tensor([AGENT_STOP_BIAS, 0.0, 0.0, 0.0])
@@ -1580,7 +1625,7 @@ def phase_agent(dev, card):
     cpu_agent = PointNavVOAgent(policy_model=cpu_policy, vo_ensemble=cpu_vo, goal_sensor=goal,
                                 device="cpu")
     env = ScriptedPointNavEnv(EnvConfig(image_h=H, image_w=W, max_episode_steps=AGENT_CAP),
-                              seed=SEED + 30)
+                              seed=seed)
     obs, done, info = env.reset(), False, {}
     actions, act_ms, goal_err, launches = [], [], 0.0, 0
     tk.reset_launch_counts()
@@ -1595,10 +1640,10 @@ def phase_agent(dev, card):
         launches += tk.launch_counts["bin_counts"] - before  # the card agent's acts only
         want = cpu_agent.act(obs)["action"]
         if a != want:
-            raise AssertionError(f"agent step {len(actions)}: card action {a}, CPU {want}")
+            raise AssertionError(f"{tag} step {len(actions)}: card action {a}, CPU {want}")
         got_goal, want_goal = card_agent.goal_cartesian, cpu_agent.goal_cartesian
         if not np.allclose(got_goal, want_goal, rtol=1e-3, atol=1e-4):
-            raise AssertionError(f"agent step {len(actions)}: card goal {got_goal}, "
+            raise AssertionError(f"{tag} step {len(actions)}: card goal {got_goal}, "
                                  f"CPU {want_goal}")
         goal_err = max(goal_err, float(np.abs(got_goal - want_goal).max()))
         # the true egocentric goal of the frame the agent acted on
@@ -1608,14 +1653,14 @@ def phase_agent(dev, card):
         obs, _r, done, info = env.step(a)
     n = len(actions)
     if n < 3 or launches != n:
-        raise AssertionError(f"agent: {launches} bin_counts launches over {n} acts "
+        raise AssertionError(f"{tag}: {launches} bin_counts launches over {n} acts "
                              "(expected one an act after the first, one more on the first "
                              "VO step)")
     # the expert of an act runs on the next one: every act but the last
     ran = {name: actions[:-1].count(a) for name, a in (("forward", 1), ("left", 2),
                                                        ("right", 3))}
     if min(ran.values()) == 0:
-        raise AssertionError(f"agent: an expert never ran ({ran}); actions {actions}")
+        raise AssertionError(f"{tag}: an expert never ran ({ran}); actions {actions}")
     end_drift = {"card_vs_cpu": float(np.abs(got_goal - want_goal).max()),
                  "card_vs_true_goal": float(np.linalg.norm(got_goal - true_goal)),
                  "cpu_vs_true_goal": float(np.linalg.norm(want_goal - true_goal))}
@@ -1624,13 +1669,13 @@ def phase_agent(dev, card):
            "act_ms_mean": float(np.mean(steady)), "act_ms_median": float(np.median(steady)),
            "first_act_ms": act_ms[:2], "goal_max_abs_err": goal_err, "end_drift": end_drift,
            "success": info.get("success"), "spl": info.get("spl")}
-    _log("agent", f"{n} acts at {W}x{H}: per act {out['act_ms_mean']:.3f} ms mean, "
-                  f"{out['act_ms_median']:.3f} ms median (host clock, synchronized, acts 3 on; "
-                  f"first two {act_ms[0]:.3f}, {act_ms[1]:.3f} ms), bin_counts launches "
-                  f"{launches}, actions equal to the CPU agent's, goal max abs err "
-                  f"{goal_err:.3g} (rtol 1e-3, atol 1e-4) on {card}; experts run "
-                  f"{json.dumps(ran)}; goal drift at the episode's end (m) "
-                  f"{json.dumps(end_drift)}; actions {actions}")
+    _log(tag, f"{n} acts at {W}x{H}: per act {out['act_ms_mean']:.3f} ms mean, "
+              f"{out['act_ms_median']:.3f} ms median (host clock, synchronized, acts 3 on; "
+              f"first two {act_ms[0]:.3f}, {act_ms[1]:.3f} ms), bin_counts launches "
+              f"{launches}, actions equal to the CPU agent's, goal max abs err "
+              f"{goal_err:.3g} (rtol 1e-3, atol 1e-4) on {card}; experts run "
+              f"{json.dumps(ran)}; goal drift at the episode's end (m) "
+              f"{json.dumps(end_drift)}; actions {actions}")
     return out
 
 
@@ -2283,6 +2328,333 @@ def phase_zoo(dev, card):
     return {"backbones": backbones, "variants": variants, "variant_launches": variant_launches,
             "unified": unified, "deep": deep, "nav_eval": nav}
 
+# ---------------------------------------------------------------- phase 13
+
+
+def _peak_gib(dev):
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def _reset_peak(dev):
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _rollout_and_update_ms(trainer):
+    """One more rollout (ms a step) and one update (ms), each timed by CUDA
+    events around the call (host work inside included)."""
+    rollout_ms = _time_ms(trainer.collect_rollout, 1, warmup=0) / trainer.cfg.num_steps
+    return rollout_ms, _time_ms(trainer.update_agent, 1, warmup=0)
+
+
+def _policies_rgbd(dev, card, base):
+    """(a) The rgb-d ResNet18 + 2-layer LSTM policy with whitening through
+    the train CLI, det VO in the loop; the buffers' count, a rollout step
+    against the CPU, a fixed rollout's loss."""
+    _reset_peak(dev)
+    trainer, wall, launches = _cli(["--run-type", "train", *base, "RL.Policy.visual_types",
+                                    "[rgb, depth]", "NUM_UPDATES", str(POLICY_UPDATES)])
+    peak = _peak_gib(dev)
+    expected = POLICY_UPDATES * RL_STEPS + 1
+    buffers = trainer.model.net.visual_encoder.running_mean_and_var
+    count = float(buffers._count)
+    want_count = RL_ENVS * RL_STEPS * POLICY_UPDATES
+    if launches != expected or count != want_count or not trainer.update_stats:
+        raise AssertionError(f"policies (a): {launches} bin_counts launches (expected "
+                             f"{expected}), whitening count {count} (expected {want_count})")
+    _log("policies", f"(a) rgb-d ResNet18 + LSTM, whitening: train {POLICY_UPDATES} updates x "
+                     f"{RL_STEPS} steps x {RL_ENVS} envs through the CLI in {wall:.3f} s, "
+                     f"bin_counts launches {launches}, whitening count {count:.0f} = N x T x "
+                     f"updates, mean {buffers._mean.flatten().tolist()}, var "
+                     f"{buffers._var.flatten().tolist()}, peak {peak:.3f} GiB on {card}")
+    rollout_ms = _time_ms(trainer.collect_rollout, 1, warmup=0) / RL_STEPS
+    step_errs = _rl_step_vs_cpu(dev, trainer, "policies")
+    update_ms = _time_ms(trainer.update_agent, 1, warmup=0)
+    _log("policies", f"(a) rollout step {rollout_ms:.4f} ms, update_agent {update_ms:.4f} ms "
+                     "(CUDA events around the calls)")
+    losses = _fixed_rollout_losses(dev, trainer, "policies")
+    return {"launches": launches, "wall_s": wall, "whitening_count": count,
+            "rollout_step_ms": rollout_ms, "update_ms": update_ms, "peak_gib": peak,
+            "step_vs_cpu": step_errs, "fixed_rollout_losses": losses}
+
+
+def _policies_gru(dev, card):
+    """(b) The depth ResNet18 policy with a 2-layer GRU: phase 3's det eval,
+    one fused step against the CPU, one PPO gradient against the CPU."""
+    import torch
+
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator, fused_vo_act_step
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    cfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    vo, policy, cpu_vo, cpu_policy = _build_models(cfg, dev, SEED + 60, rnn_type="GRU")
+    envs = make_scripted_vector_env(EnvConfig(image_h=H, image_w=W, max_episode_steps=20),
+                                    N_ENVS, seed=SEED + 60)
+    ev = Evaluator(model=policy, envs=envs, vo_ensemble=vo, device=dev)
+    _reset_peak(dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = ev.run(N_ENVS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    peak = _peak_gib(dev)
+    loop_steps = max(r.steps for r in ev.results)
+    if (agg["episodes"] != N_ENVS or not all(np.isfinite(v) for v in agg.values())
+            or launches != loop_steps + 1 or policy.num_packed_hidden != 2):
+        raise AssertionError(f"policies (b): {launches} launches over {loop_steps} steps "
+                             f"(expected steps + 1); {agg}")
+    obs0, obs1, actions = _zoo_frames(N_ENVS, SEED + 61)
+    args = _fused_inputs(obs0, obs1, actions, dev, cfg, policy)
+    step_ms = _time_ms(lambda: fused_vo_act_step(policy, vo, **args), iters=10)
+    errs = _compare_step(fused_vo_act_step(policy, vo, **args), fused_vo_act_step(
+        cpu_policy, cpu_vo, **_fused_inputs(obs0, obs1, actions, torch.device("cpu"), cfg,
+                                            cpu_policy)))
+    _log("policies", f"(b) depth ResNet18 + 2-layer GRU, det eval of {N_ENVS} envs: "
+                     f"{loop_steps} steps in {wall:.3f} s, bin_counts launches {launches}, "
+                     f"fused step {step_ms:.4f} ms (CUDA events), peak {peak:.3f} GiB on {card}; "
+                     "card vs CPU (rtol 1e-3, atol 1e-4; actions equal): "
+                     + json.dumps(errs, sort_keys=True))
+    trainer = _rl_trainer(dev, RL_PARITY_STEPS, SEED + 62,
+                          policy=PointNavActorCritic(image_size=(H, W), rnn_type="GRU"))
+    trainer.collect_rollout()
+    grad = _rl_grad_vs_cpu(dev, trainer, "policies")
+    update_ms = _time_ms(trainer.update_agent, 1, warmup=0)
+    _log("policies", f"(b) update_agent {update_ms:.4f} ms ({RL_PARITY_STEPS} steps x "
+                     f"{RL_ENVS} envs, CUDA events)")
+    return {"launches": launches, "loop_steps": loop_steps, "wall_s": wall, "metrics": agg,
+            "step_ms": step_ms, "peak_gib": peak, "vs_cpu": errs, "grad_vs_cpu": grad,
+            "update_ms": update_ms}
+
+
+def _policies_baseline(dev, card, base):
+    """(c) The SimpleCNN + GRU baseline through the CLI: train, a rollout
+    step against the CPU, eval from its checkpoint, its step against the
+    CPU, and an agent episode."""
+    import torch
+
+    from pointnav_vo_tpu_torch import engines
+    from pointnav_vo_tpu_torch.config.defaults import get_rl_config
+    from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from pointnav_vo_tpu_torch.io.weights import POLICY_PREFIX, load_policy_checkpoint
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator, fused_vo_act_step
+    from pointnav_vo_tpu_torch.utils import registry
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble
+
+    opts = ["RL.Policy.name", "pointnav_baseline_policy"]
+    _reset_peak(dev)
+    trainer, wall, launches = _cli(["--run-type", "train", *base, *opts,
+                                    "NUM_UPDATES", str(POLICY_UPDATES)])
+    peak = _peak_gib(dev)
+    expected = POLICY_UPDATES * RL_STEPS + 1
+    if launches != expected or trainer.model.num_packed_hidden != 1:
+        raise AssertionError(f"policies (c): {launches} bin_counts launches in training "
+                             f"(expected {expected})")
+    rollout_ms = _time_ms(trainer.collect_rollout, 1, warmup=0) / RL_STEPS
+    train_errs = _rl_step_vs_cpu(dev, trainer, "policies")
+    update_ms = _time_ms(trainer.update_agent, 1, warmup=0)
+    _log("policies", f"(c) SimpleCNN + GRU baseline: train {POLICY_UPDATES} updates through "
+                     f"the CLI in {wall:.3f} s, bin_counts launches {launches}, rollout step "
+                     f"{rollout_ms:.4f} ms, update_agent {update_ms:.4f} ms (CUDA events), "
+                     f"peak {peak:.3f} GiB on {card}")
+
+    root = base[base.index("--log-root") + 1]
+    ckpt_dir = os.path.join(glob.glob(os.path.join(root, "rl-train-*"))[0], "checkpoints")
+    ckpt = os.path.join(ckpt_dir, sorted(os.listdir(ckpt_dir))[-1])
+    # the STOP logit lowered, so the eval's episodes run (a port checkpoint still)
+    state = load_checkpoint(ckpt)
+    state["state_dict"][POLICY_PREFIX + "action_distribution.linear.bias"][0] = AGENT_STOP_BIAS
+    save_checkpoint(ckpt, state)
+    runs = []
+    real_run = Evaluator.run
+
+    def counted_run(self, num_episodes, **kw):
+        before = tk.launch_counts["bin_counts"]
+        out = real_run(self, num_episodes, **kw)
+        runs.append((tk.launch_counts["bin_counts"] - before,
+                     max(r.steps for r in self.results)))
+        return out
+
+    Evaluator.run = counted_run
+    try:
+        metrics, eval_wall, eval_launches = _cli(
+            ["--run-type", "eval", *base, *opts, "EVAL.EVAL_CKPT_PATH", ckpt,
+             "EVAL.TEST_EPISODE_COUNT", str(CLI_EVAL_EPISODES),
+             "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", str(CLI_EVAL_CAP)])
+    finally:
+        Evaluator.run = real_run
+    if (len(runs) != 1 or eval_launches != runs[0][1] + 1
+            or metrics["episodes"] != CLI_EVAL_EPISODES
+            or not all(np.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"policies (c) eval: {eval_launches} launches over {runs} "
+                             f"(expected steps + 1); {metrics}")
+    _log("policies", f"(c) eval from {os.path.basename(ckpt)}: {runs[0][1]} steps in "
+                     f"{eval_wall:.3f} s, bin_counts launches {eval_launches}; "
+                     + json.dumps(metrics, sort_keys=True))
+
+    # the checkpoint's policy and the engine's experts, card against CPU
+    config = get_rl_config([RL_CONFIG], [*opts, "VO.REGRESS_MODEL.pretrained", "False"])
+    policy = registry.get_policy(config.RL.Policy.name)(config)
+    policy.load_state_dict(load_policy_checkpoint(ckpt), strict=True)
+    cpu_policy = copy.deepcopy(policy).eval()
+    policy = policy.to(dev).eval()
+    vo = engines._build_vo_ensemble(config, dev)
+    cpu_vo = VOEnsemble(vo.cfg, experts=[copy.deepcopy(m).cpu() for m in vo.experts],
+                        device="cpu")
+    obs0, obs1, actions = _zoo_frames(N_ENVS, SEED + 63)
+    args = _fused_inputs(obs0, obs1, actions, dev, vo.cfg, policy)
+    step_ms = _time_ms(lambda: fused_vo_act_step(policy, vo, **args), iters=10)
+    eval_errs = _compare_step(fused_vo_act_step(policy, vo, **args), fused_vo_act_step(
+        cpu_policy, cpu_vo, **_fused_inputs(obs0, obs1, actions, torch.device("cpu"), vo.cfg,
+                                            cpu_policy)))
+    _log("policies", f"(c) fused step at {N_ENVS} envs from the checkpoint {step_ms:.4f} ms "
+                     "(CUDA events); card vs CPU (rtol 1e-3, atol 1e-4; actions equal): "
+                     + json.dumps(eval_errs, sort_keys=True))
+    agent = _agent_episode(dev, card, vo, policy, cpu_vo, cpu_policy, SEED + 64, "policies")
+    return {"launches": launches, "eval_launches": eval_launches,
+            "agent_launches": agent["launches"], "wall_s": wall, "eval_wall_s": eval_wall,
+            "rollout_step_ms": rollout_ms, "update_ms": update_ms, "peak_gib": peak,
+            "step_vs_cpu": train_errs, "eval_metrics": metrics, "eval_step_ms": step_ms,
+            "eval_vs_cpu": eval_errs, "agent": agent}
+
+
+def _synthetic_matches(n, seed):
+    """Packed matched point sets as ``ClassicalVO.match`` packs them: ``n``
+    envs of 8-500 points each, a known motion, 1 mm of noise, padded with
+    garbage at weight 0; the actions and the motions."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(KABSCH_POINTS[0], KABSCH_POINTS[1] + 1, n)
+    counts[:2] = KABSCH_POINTS
+    k = int(counts.max())
+    packed = rng.normal(0, 5, (n, 7, k)).astype(np.float32)
+    packed[:, 6] = 0.0
+    motions = np.stack([rng.uniform(-0.05, 0.05, n), rng.uniform(-0.3, 0.0, n),
+                        rng.uniform(-0.6, 0.6, n)], axis=1)
+    for i, c in enumerate(counts):
+        dx, dz, dyaw = motions[i]
+        co, si = np.cos(dyaw), np.sin(dyaw)
+        r = np.asarray([[co, 0, si], [0, 1, 0], [-si, 0, co]])
+        prev = rng.uniform(-2, 2, (3, c))
+        prev[2] -= 3.0
+        packed[i, 0:3, :c] = prev
+        packed[i, 3:6, :c] = r.T @ (prev - np.asarray([[dx], [0.0], [dz]])) + rng.normal(
+            0, 1e-3, (3, c))
+        packed[i, 6, :c] = 1.0
+    return packed, rng.integers(1, 4, n), motions
+
+
+def _policies_classical(dev, card):
+    """(d) Phase 3's eval with ``VO.VO_TYPE CLASSICAL`` through
+    ``engines.py``: no ``bin_counts``, the accepted share, host and device
+    ms a step; the batched Kabsch card against CPU on synthetic sets."""
+    import torch
+
+    from pointnav_vo_tpu_torch import engines
+    from pointnav_vo_tpu_torch.config.defaults import get_rl_config
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator
+    from pointnav_vo_tpu_torch.utils import registry
+
+    config = get_rl_config([RL_CONFIG], [
+        "NUM_PROCESSES", str(N_ENVS), "SEED", str(SEED), "VO.USE_VO_MODEL", "True",
+        "VO.VO_TYPE", "CLASSICAL", "TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS", "20"])
+    policy = registry.get_policy(config.RL.Policy.name)(config)
+    seeded_init_(policy, torch.Generator().manual_seed(SEED + 70))
+    with torch.no_grad():  # STOP disfavoured: the episodes run to the cap
+        policy.action_distribution.linear.bias[0] = AGENT_STOP_BIAS
+    if engines._build_vo_ensemble(config, dev) is not None:
+        raise AssertionError("policies (d): VO_TYPE CLASSICAL built a VO ensemble")
+    vo_fn = engines._build_classical_vo_fn(config, dev)
+    envs = registry.get_env(config.ENV_NAME)(config, N_ENVS, seed=SEED + 70)
+    ev = Evaluator(model=policy.to(dev).eval(), envs=envs, vo_fn=vo_fn, device=dev)
+    _reset_peak(dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    agg = ev.run(N_ENVS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    peak = _peak_gib(dev)
+    envs.close()
+    loop_steps = max(r.steps for r in ev.results)
+    accepted = int(vo_fn.accepted)
+    if (launches != 0 or agg["episodes"] != N_ENVS
+            or not all(np.isfinite(v) for v in agg.values())
+            or vo_fn.env_steps != loop_steps * N_ENVS):
+        raise AssertionError(f"policies (d): {launches} bin_counts launches (expected 0), "
+                             f"{vo_fn.env_steps} env steps matched; {agg}")
+    host_ms = vo_fn.host_s * 1e3 / loop_steps
+    _log("policies", f"(d) classical VO eval of {N_ENVS} envs: {loop_steps} steps in "
+                     f"{wall:.3f} s, bin_counts launches {launches}; env-steps matched "
+                     f"{vo_fn.matched} and accepted {accepted} of {vo_fn.env_steps} (share "
+                     f"accepted {accepted / vo_fn.env_steps:.4f}, the rest the action prior); "
+                     f"host ORB + matching {host_ms:.4f} ms a step (host clock), peak "
+                     f"{peak:.3f} GiB on {card}; " + json.dumps(agg, sort_keys=True))
+
+    from pointnav_vo_tpu_torch.vo.classical import make_classical_vo_fn
+
+    packed, acts, motions = _synthetic_matches(KABSCH_ENVS, SEED + 71)
+    got = vo_fn.solve(packed, acts)
+    want = make_classical_vo_fn(device="cpu", max_residual=vo_fn.max_residual).solve(
+        packed, acts)
+    errs = {}
+    for name, g, w in zip(("delta", "std", "accepted"), got, want):
+        g = g.cpu()
+        errs[name] = float((g.double() - w.double()).abs().max())
+        ok = torch.equal(g, w) if name == "accepted" else torch.allclose(g, w, rtol=1e-4,
+                                                                         atol=1e-5)
+        if not ok:
+            raise AssertionError(f"policies (d): batched Kabsch {name}, card vs CPU: max abs "
+                                 f"err {errs[name]}")
+    truth_err = float(np.abs(got[0].cpu().numpy() - motions).max())
+    if not bool(got[2].all()) or truth_err > 1e-2:
+        raise AssertionError(f"policies (d): synthetic sets not all accepted, or the deltas "
+                             f"{truth_err} from the known motions")
+    device_ms = _time_ms(lambda: vo_fn.solve(packed, acts), iters=20)
+    _log("policies", f"(d) batched weighted Kabsch, {KABSCH_ENVS} envs of "
+                     f"{KABSCH_POINTS[0]}-{KABSCH_POINTS[1]} points: card vs CPU (rtol 1e-4, "
+                     f"atol 1e-5; acceptance equal) {json.dumps(errs)}, max abs err from the "
+                     f"known motions {truth_err:.3g}; solve {device_ms:.4f} ms a step (upload, "
+                     "SVD, gate; CUDA events)")
+    return {"launches": launches, "loop_steps": loop_steps, "wall_s": wall, "metrics": agg,
+            "env_steps": vo_fn.env_steps, "matched": vo_fn.matched, "accepted": accepted,
+            "host_ms": host_ms, "device_ms": device_ms, "peak_gib": peak,
+            "kabsch_vs_cpu": errs, "kabsch_vs_truth": truth_err}
+
+
+def phase_policies(dev, card):
+    """Phase 13: the policy family and the classical backend at full width,
+    fp32, TF32 off, seeded weights."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_policies_")
+
+    def base(sub):
+        # seeded experts: the published .pth files are not in the repo
+        return ["--task-type", "rl", "--exp-config", RL_CONFIG, "--log-root",
+                os.path.join(root, sub), "--device", str(dev),
+                "VO.REGRESS_MODEL.pretrained", "False"]
+
+    try:
+        rgbd = _policies_rgbd(dev, card, base("rgbd"))
+        gru = _policies_gru(dev, card)
+        baseline = _policies_baseline(dev, card, base("baseline"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    classical = _policies_classical(dev, card)
+    return {"rgbd": rgbd, "gru": gru, "baseline": baseline, "classical": classical}
+
 
 def main() -> int:
     import torch
@@ -2318,6 +2690,7 @@ def main() -> int:
     e994 = timed("eval_994", phase_eval_994, dev, card)
     farm = timed("farm", phase_farm, dev, card)
     zoo = timed("zoo", phase_zoo, dev, card)
+    pol = timed("policies", phase_policies, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -2336,7 +2709,13 @@ def main() -> int:
                "farm_video_ranked_eval": farm["launches"]["video_ranked"],
                "zoo_backbones": sum(b["launches"] for b in zoo["backbones"].values()),
                "zoo_variants": zoo["variant_launches"],
-               "zoo_nav_eval": zoo["nav_eval"]["launches"]}
+               "zoo_nav_eval": zoo["nav_eval"]["launches"],
+               "policies_rgbd_train": pol["rgbd"]["launches"],
+               "policies_gru_eval": pol["gru"]["launches"],
+               "policies_baseline_train": pol["baseline"]["launches"],
+               "policies_baseline_eval": pol["baseline"]["eval_launches"],
+               "policies_baseline_agent": pol["baseline"]["agent_launches"],
+               "policies_classical_eval": pol["classical"]["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -2366,6 +2745,7 @@ def main() -> int:
         "eval_994": e994,
         "farm": farm,
         "zoo": zoo,
+        "policies": pol,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

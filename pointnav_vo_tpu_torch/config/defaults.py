@@ -88,8 +88,9 @@ def get_rl_config(paths: Optional[List[str]] = None, opts: Optional[list] = None
         # eval can replay them (priority eval_opts > ckpt_opts > eval_cfg >
         # ckpt_cfg, engines.py::_merged_eval_config)
         "CMD_TRAILING_OPTS": [],
-        # env fan-out backend: "sync" (in-process serial loop); "shm" and
-        # "habitat" are not ported yet
+        # env fan-out backend: "sync" (in-process serial loop), "shm"
+        # (forked scripted workers over the shared-memory rings), "habitat"
+        # (shm workers each hosting a habitat-sim instance)
         "ENV_BACKEND": "sync",
         "SENSORS": ["DEPTH_SENSOR", "RGB_SENSOR"],
         "NUM_UPDATES": 10000,

@@ -11,7 +11,10 @@ library (``vo/engine.py``, ``rl/trainer.py``, ``rl/eval.py``):
   ``ENV_BACKEND`` (scripted in process, the scripted shm farm, or habitat
   workers) with optional VO in the loop, checkpoints every
   ``CHECKPOINT_INTERVAL`` updates, resume, preemption, and the
-  checkpoint-sweep eval driver with its videos and ranked images.
+  checkpoint-sweep eval driver with its videos and ranked images; the eval
+  dead-reckons through the VO ensemble, or through the classical backend
+  (``vo/classical.py``) with ``VO.VO_TYPE: CLASSICAL``, which training
+  leaves out, as the JAX package's does.
 
 Every engine runs on ``device`` (``None``: the card).  RL checkpoints are
 the reference's ``.pth`` container (``state_dict`` with the
@@ -46,7 +49,7 @@ from pointnav_vo_tpu_torch.io.weights import (
     policy_state_dict_from_container,
     seeded_init_,
 )
-from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic, PointNavBaselineActorCritic
 from pointnav_vo_tpu_torch.models.vo_cnn import VO_MODEL_NAMES, make_vo_model
 from pointnav_vo_tpu_torch.rl.envs import (
     env_config_from_task,
@@ -79,26 +82,30 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 # ---------------------------------------------------------------------------
 
 
+def _sensor_size(config: Config):
+    depth = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR
+    return depth.HEIGHT, depth.WIDTH
+
+
 @registry.register_policy(name="resnet_rnn_policy")
 def make_resnet_rnn_policy(config: Config):
-    """The depth policy: ``RL.Policy.visual_backbone`` (any of
-    ``resnet.BACKBONES``) and an LSTM of ``num_recurrent_layers`` layers."""
+    """``RL.Policy``: the ``visual_types`` inputs (rgb policies whiten
+    theirs), ``visual_backbone`` (any of ``resnet.BACKBONES``), and an
+    ``rnn_backbone`` (LSTM or GRU) of ``num_recurrent_layers`` layers."""
     pol = config.RL.Policy
-    if pol.rnn_backbone != "LSTM":
-        raise not_ported(f"RL.Policy.rnn_backbone {pol.rnn_backbone!r} (the GRU)", "10")
-    if list(pol.visual_types) != ["depth"]:
-        raise not_ported(f"RL.Policy.visual_types {list(pol.visual_types)} (rgb policies)",
-                         "10")
-    depth = config.TASK_CONFIG.SIMULATOR.DEPTH_SENSOR
-    return PointNavActorCritic(image_size=(depth.HEIGHT, depth.WIDTH),
+    return PointNavActorCritic(image_size=_sensor_size(config),
                                hidden_size=config.RL.PPO.hidden_size,
                                backbone=pol.visual_backbone,
-                               num_recurrent_layers=pol.num_recurrent_layers)
+                               num_recurrent_layers=pol.num_recurrent_layers,
+                               vis_types=tuple(pol.visual_types), rnn_type=pol.rnn_backbone,
+                               normalize_visual_inputs="rgb" in pol.visual_types)
 
 
 @registry.register_policy(name="pointnav_baseline_policy")
 def make_baseline_policy(config: Config):
-    raise not_ported("pointnav_baseline_policy (SimpleCNNEncoder + GRU)", "12")
+    """The SimpleCNN + GRU baseline over rgb and depth."""
+    return PointNavBaselineActorCritic(image_size=_sensor_size(config),
+                                       hidden_size=config.RL.PPO.hidden_size)
 
 
 @registry.register_env(name="NavRLEnv")
@@ -312,15 +319,34 @@ class VOGeoInvarianceEngine:
 # ---------------------------------------------------------------------------
 
 
+def _uses_classical_vo(config: Config) -> bool:
+    return (config.VO.get("USE_VO_MODEL", False)
+            and config.VO.get("VO_TYPE", "REGRESS") == "CLASSICAL")
+
+
+def _build_classical_vo_fn(config: Config, device):
+    """The vo_fn of ``VO.VO_TYPE: CLASSICAL``: ORB matches on the host,
+    the alignment batched on ``device``, under the task's depth sensor and
+    actuation."""
+    from pointnav_vo_tpu_torch.vo.classical import make_classical_vo_fn
+
+    sim = config.TASK_CONFIG.SIMULATOR
+    return make_classical_vo_fn(hfov_deg=sim.DEPTH_SENSOR.HFOV,
+                                min_depth=sim.DEPTH_SENSOR.MIN_DEPTH,
+                                max_depth=sim.DEPTH_SENSOR.MAX_DEPTH,
+                                forward_step=sim.get("FORWARD_STEP_SIZE", 0.25),
+                                turn_angle_deg=sim.TURN_ANGLE, device=device)
+
+
 def _build_vo_ensemble(config: Config, device) -> Optional[VOEnsemble]:
     """The VO ensemble of ``VO.REGRESS_MODEL``: the three experts of the
     configured ``.pth`` files, or seeded random experts where none are
-    configured; ``None`` without ``VO.USE_VO_MODEL``."""
+    configured; ``None`` without ``VO.USE_VO_MODEL``, and for any
+    ``VO.VO_TYPE`` but ``REGRESS`` (the classical backend rides the
+    ``vo_fn`` hook instead)."""
     vo = config.VO
-    if not vo.get("USE_VO_MODEL", False):
+    if not vo.get("USE_VO_MODEL", False) or vo.get("VO_TYPE", "REGRESS") != "REGRESS":
         return None
-    if vo.get("VO_TYPE", "REGRESS") != "REGRESS":
-        raise not_ported(f"VO.VO_TYPE {vo.VO_TYPE!r} (the classical VO backend)", "12")
     node = vo.REGRESS_MODEL
     icfg = vo_inference_config_from(config, node)
     if node.pretrained and node.all_pretrained_ckpt:
@@ -535,8 +561,9 @@ class _BaseRLEngine:
             self.model.load_state_dict(sd, strict=True)
         else:
             seeded_init_(self.model, torch.Generator().manual_seed(cfg.SEED))
-        evaluator = Evaluator(model=self.model, envs=envs, vo_ensemble=vo, device=self.device,
-                              deterministic=True,
+        vo_fn = _build_classical_vo_fn(cfg, self.device) if _uses_classical_vo(cfg) else None
+        evaluator = Evaluator(model=self.model, envs=envs, vo_ensemble=vo, vo_fn=vo_fn,
+                              device=self.device, deterministic=True,
                               generator=torch.Generator(device=self.device).manual_seed(cfg.SEED))
         n = num_episodes or (cfg.EVAL.TEST_EPISODE_COUNT
                              if cfg.EVAL.TEST_EPISODE_COUNT > 0 else 100)

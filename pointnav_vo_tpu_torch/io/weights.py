@@ -5,12 +5,19 @@ back for the VO expert and the policy.
 The port's own copy of the key mapping of ``io/torch_export.py``: conv
 HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
 ``weight``, RunningMeanAndVar ``(C,)`` stats -> ``(1, C, 1, 1)`` buffers;
-the LSTM matrices are stored in torch's layout already and pass through.
+the LSTM and GRU matrices are stored in torch's layout already and pass
+through.
 It covers every backbone (a bottleneck's ``conv3``/``gn3`` at ``convs.6``
 and ``convs.7``, the SE gate's ``fc1``/``fc2`` at ``se.excite.0`` and
 ``se.excite.2``; a grouped kernel ``[kh, kw, I/g, O]`` takes the same
 transpose to torch's ``[O, I/g, kh, kw]``) and the act-embed model
-(``action_embedding``, ``hidden_generator.1``).
+(``action_embedding``, ``hidden_generator.1``).  For the policies it
+carries the rgb policies' whitening buffers (``batch_stats/visual_encoder/
+rmv`` <-> ``net.visual_encoder.running_mean_and_var._mean/_var/_count``)
+and defines the SimpleCNN baseline's keys, which the JAX package's ``.pth``
+exporter lacks: ``visual_encoder/conv{1,2,3}`` and ``fc`` <->
+``net.visual_encoder.cnn.{0,2,4,6}``, the reference SimpleCNN's
+``Sequential`` layout.
 
 :func:`vo_state_dicts_from_stacked` reads the JAX training engine's stacked
 expert tree (a leading expert axis); :func:`vo_variables_from_state_dict`,
@@ -65,6 +72,10 @@ _KIND = {"conv": _conv, "dense": _dense, "plain": lambda v: v}
 _CONVS_IDX = {"conv1": "0", "gn1": "1", "conv2": "3", "gn2": "4", "conv3": "6", "gn3": "7"}
 # position inside an SE gate's ``excite`` Sequential (Linear, ReLU, Linear)
 _SE_IDX = {"fc1": "0", "fc2": "2"}
+# position inside the SimpleCNN baseline's ``cnn`` Sequential (conv, ReLU,
+# conv, ReLU, conv, Flatten, Linear, ReLU)
+_SIMPLE_CNN_IDX = {"conv1": "0", "conv2": "2", "conv3": "4", "fc": "6"}
+_RMV_NAMES = {"_mean": "mean", "_var": "var", "_count": "count"}
 
 
 def _wb(leaf: str) -> str:
@@ -118,6 +129,23 @@ def _rmv_entries(stats: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]
         key + "_var": np.asarray(rmv["var"], np.float32).reshape(1, -1, 1, 1),
         key + "_count": np.asarray(rmv["count"], np.float32).reshape(()),
     }
+
+
+def _simple_cnn_entry(rest: Tuple[str, ...], v: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The baseline's ``visual_encoder/<conv1|conv2|conv3|fc>/<leaf>``."""
+    name, leaf = rest[0], rest[-1]
+    key = f"net.visual_encoder.cnn.{_SIMPLE_CNN_IDX[name]}.{_wb(leaf)}"
+    if leaf != "kernel":
+        return key, v
+    return key, (_dense(v) if name == "fc" else _conv(v))
+
+
+def _set_rmv(out: Dict, name: str, a: np.ndarray) -> None:
+    """A whitening buffer (``_mean``, ``_var`` or ``_count``) into
+    ``batch_stats/visual_encoder/rmv``."""
+    name = _RMV_NAMES[name]
+    _set(out.setdefault("batch_stats", {}), ("visual_encoder", "rmv", name),
+         a.reshape(-1) if name != "count" else a.reshape(()))
 
 
 def _to_torch(sd: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -231,9 +259,7 @@ def vo_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Di
     for key, v in sd.items():
         a = v.detach().cpu().numpy().astype(np.float32)
         if key.startswith(rmv):
-            name = {"_mean": "mean", "_var": "var", "_count": "count"}[key[len(rmv):]]
-            _set(out.setdefault("batch_stats", {}), ("visual_encoder", "rmv", name),
-                 a.reshape(-1) if name != "count" else a.reshape(()))
+            _set_rmv(out, key[len(rmv):], a)
             continue
         path, kind = _vo_param_path(key)
         _set(out["params"], path, _KIND_INV[kind](a))
@@ -259,9 +285,9 @@ def vo_state_dicts_from_stacked(stacked: Mapping[str, Any]) -> List[Dict[str, to
 
 
 def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``PointNavActorCritic`` variables (the depth policy, which has no
-    whitening statistics) -> state dict of
-    :class:`models.policy.PointNavActorCritic`."""
+    """Flax ``PointNavActorCritic`` or ``PointNavBaselineActorCritic``
+    variables (with the rgb policies' ``batch_stats`` where present) ->
+    state dict of the port's module of the same name."""
     sd: Dict[str, np.ndarray] = {}
     for path, v in _flatten(variables.get("params", {})):
         head, leaf = path[0], path[-1]
@@ -269,6 +295,8 @@ def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
             key, val = "net.prev_action_embedding.weight", v
         elif head == "tgt_embeding":
             key, val = _linear("net.tgt_embeding", leaf, v)
+        elif head == "visual_encoder" and path[1] in _SIMPLE_CNN_IDX:
+            key, val = _simple_cnn_entry(path[1:], v)
         elif head == "visual_encoder":
             key, val = _encoder_entry(path[1:], v, "net.visual_encoder.")
         elif head == "visual_fc":  # Sequential(Flatten, Linear, ReLU)
@@ -283,6 +311,8 @@ def policy_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
         else:
             raise KeyError(f"unrecognized policy param: {'.'.join(path)}")
         sd[key] = val
+    if variables.get("batch_stats"):
+        sd.update(_rmv_entries(variables["batch_stats"], "net.visual_encoder."))
     return _to_torch(sd)
 
 
@@ -297,6 +327,12 @@ def _policy_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
     leaf = key.rsplit(".", 1)[-1]
     if key == "net.prev_action_embedding.weight":
         return ("prev_action_embedding", "embedding"), "plain"
+    if key.startswith("net.visual_encoder.cnn."):  # the baseline's SimpleCNN
+        idx = key.split(".")[3]
+        name = {v: k for k, v in _SIMPLE_CNN_IDX.items()}[idx]
+        if leaf == "bias":
+            return ("visual_encoder", name, "bias"), "plain"
+        return ("visual_encoder", name, "kernel"), "dense" if name == "fc" else "conv"
     if key.startswith("net.visual_encoder."):
         path, kind = _encoder_path(key[len("net.visual_encoder."):])
         return ("visual_encoder",) + path, kind
@@ -310,13 +346,19 @@ def _policy_param_path(key: str) -> Tuple[Tuple[str, ...], str]:
 
 
 def policy_variables_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
-    """State dict (or ``{name: grad}``) of
-    :class:`models.policy.PointNavActorCritic` -> flax ``{"params": ...}``
-    of numpy arrays: the inverse of :func:`policy_state_dict_from_jax`."""
+    """State dict (or ``{name: grad}``) of either policy -> flax
+    ``{"params": ...}`` (and ``batch_stats`` where ``sd`` holds whitening
+    buffers) of numpy arrays: the inverse of
+    :func:`policy_state_dict_from_jax`."""
     out: Dict[str, Dict] = {"params": {}}
+    rmv = "net.visual_encoder.running_mean_and_var."
     for key, v in sd.items():
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if key.startswith(rmv):
+            _set_rmv(out, key[len(rmv):], a)
+            continue
         path, kind = _policy_param_path(key)
-        _set(out["params"], path, _KIND_INV[kind](v.detach().cpu().numpy().astype(np.float32)))
+        _set(out["params"], path, _KIND_INV[kind](a))
     return out
 
 
@@ -333,7 +375,8 @@ def split_expert_variables(stacked: Mapping[str, Any], n_experts: int = 3) -> Li
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator`` (a CPU generator; build the
     module on the CPU, then move it): fan-in-scaled normal convs and linears,
-    unit GroupNorm, identity whitening, torch's uniform range for the LSTM."""
+    unit GroupNorm, identity whitening, torch's uniform range for the LSTM
+    and the GRU."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -346,7 +389,7 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.normal_(0.0, 1.0, generator=generator)
-            elif isinstance(m, nn.LSTM):
+            elif isinstance(m, (nn.LSTM, nn.GRU)):
                 bound = 1.0 / math.sqrt(m.hidden_size)
                 for p in m.parameters():
                     p.uniform_(-bound, bound, generator=generator)
@@ -399,6 +442,6 @@ def policy_state_dict_from_container(ckpt: Mapping[str, Any]) -> Dict[str, torch
 
 
 def load_policy_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of :class:`models.policy.PointNavActorCritic` in a
-    reference RL ``.pth`` or one of the port's RL checkpoints."""
+    """The state dict of either policy in a reference RL ``.pth`` or one of
+    the port's RL checkpoints."""
     return policy_state_dict_from_container(load_checkpoint(path))

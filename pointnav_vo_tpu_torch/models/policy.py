@@ -1,25 +1,35 @@
-"""Navigation actor-critic (counterpart of ``models/policy.py``), the deployed
-``resnet_rnn_policy``: a depth GroupNorm ResNet (ResNet18 deployed, any of
-``resnet.BACKBONES``) behind a 2x2 avg-pool, the goal encoded as
-``[rho, cos(-phi), sin(-phi)] -> Linear(32)``, a 32-d previous-action
-embedding with the +1 shift and done-masking, an LSTM (2 layers deployed,
-``num_recurrent_layers``), a categorical action head and a linear critic.
+"""Navigation actor-critics (counterpart of ``models/policy.py``).
+
+- :class:`PointNavActorCritic`, the deployed ``resnet_rnn_policy``: a
+  GroupNorm ResNet (ResNet18 deployed, any of ``resnet.BACKBONES``) over
+  the ``vis_types`` inputs (rgb, scaled by 1/255, then depth, in that order
+  whatever the config's) behind a 2x2 avg-pool and, with
+  ``normalize_visual_inputs`` (the rgb policies), a
+  :class:`RunningMeanAndVar` whitening; the goal encoded as ``[rho,
+  cos(-phi), sin(-phi)] -> Linear(32)``; a 32-d previous-action embedding
+  with the +1 shift and done-masking; an LSTM or GRU (``rnn_type``, 2
+  layers deployed); a categorical action head and a linear critic.
+- :class:`PointNavBaselineActorCritic`, the SimpleCNN + GRU baseline
+  (``pointnav_baseline_policy``): three VALID convs and a Linear over rgb
+  and depth, then a one-layer GRU over ``[vis, rho, phi]``.
 
 Module names follow the reference state dict (without the ``actor_critic.``
-prefix): ``net.visual_encoder``, ``net.visual_fc.1``, ``net.tgt_embeding``,
-``net.prev_action_embedding``, ``net.state_encoder.rnn``,
-``action_distribution.linear`` and ``critic.fc``.  Depth input only (the
-deployed policy's; rgb policies, which also whiten their input, are not
-ported yet).  One step takes ``[N, ...]`` inputs; the PPO update's sequence
-form takes ``[T, N, ...]``, runs the encoder on all ``T*N`` frames at once
-and the LSTM over time.  The modules follow their parameters' dtype
-(float32, or float64 for a reference run).
+prefix): ``net.visual_encoder`` (``.running_mean_and_var`` for the
+whitening buffers; the baseline's ``.cnn`` Sequential), ``net.visual_fc.1``,
+``net.tgt_embeding``, ``net.prev_action_embedding``,
+``net.state_encoder.rnn``, ``action_distribution.linear`` and ``critic.fc``.
+One step takes ``[N, ...]`` inputs; the PPO update's sequence form takes
+``[T, N, ...]``, runs the encoder on all ``T*N`` frames at once and the RNN
+over time.  ``update_stats`` folds the frames into the whitening buffers
+before they normalise them (rollout collection); otherwise the buffers are
+read as they stand.  The modules follow their parameters' dtype (float32,
+or float64 for a reference run).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,23 +38,56 @@ from torch import nn
 from pointnav_vo_tpu_torch.common import N_ACTS
 from pointnav_vo_tpu_torch.models import resnet as resnet_lib
 from pointnav_vo_tpu_torch.models.rnn import RNNStateEncoder
+from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
 from pointnav_vo_tpu_torch.models.vo_cnn import compression_channels
 
 PREV_ACTION_EMBED_DIM = 32
 GOAL_EMBED_DIM = 32
+GOAL_POLAR_DIM = 2
 NUM_RECURRENT_LAYERS = 2  # the deployed policy's
+GOAL_KEY = "pointgoal_with_gps_compass"
+VIS_ORDER = ("rgb", "depth")  # the input channels' order, whatever the config's
+
+
+def _vis_types(vis_types: Sequence[str]) -> Tuple[str, ...]:
+    unknown = set(vis_types) - set(VIS_ORDER)
+    if unknown or not vis_types:
+        raise ValueError(f"visual types {list(vis_types)} (a subset of {list(VIS_ORDER)})")
+    return tuple(t for t in VIS_ORDER if t in vis_types)
+
+
+def _channels(vis_types: Sequence[str]) -> int:
+    return (3 if "rgb" in vis_types else 0) + (1 if "depth" in vis_types else 0)
+
+
+def visual_input(observations: Dict[str, torch.Tensor], vis_types: Sequence[str],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The ``vis_types`` frames as one ``[N, C, H, W]`` tensor in ``dtype``:
+    rgb (uint8 or float) cast, then scaled by 1/255, ahead of depth."""
+    parts = []
+    if "rgb" in vis_types:
+        parts.append(observations["rgb"].to(dtype) / 255.0)
+    if "depth" in vis_types:
+        parts.append(observations["depth"].to(dtype))
+    return torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
 
 
 class PolicyResNetEncoder(nn.Module):
-    """Visual trunk: avg-pool/2 (floor) -> backbone -> compression."""
+    """Visual trunk: avg-pool/2 (floor) -> (whitening) -> backbone ->
+    compression."""
 
     def __init__(self, image_size: Tuple[int, int] = (192, 341), baseplanes: int = 32,
-                 backbone: str = "resnet18"):
+                 backbone: str = "resnet18", vis_types: Sequence[str] = ("depth",),
+                 normalize_visual_inputs: bool = False):
         super().__init__()
+        self.vis_types = _vis_types(vis_types)
+        in_ch = _channels(self.vis_types)
         h, w = image_size
         fh, fw = math.ceil((h // 2) / 32), math.ceil((w // 2) / 32)
         self.output_shape = (compression_channels(fh, fw), fh, fw)
-        self.backbone = resnet_lib.BACKBONES[backbone](1, base_planes=baseplanes,
+        self.running_mean_and_var = (RunningMeanAndVar(in_ch) if normalize_visual_inputs
+                                     else None)
+        self.backbone = resnet_lib.BACKBONES[backbone](in_ch, base_planes=baseplanes,
                                                        ngroups=baseplanes // 2)
         ch = self.output_shape[0]
         self.compression = nn.Sequential(
@@ -53,16 +96,23 @@ class PolicyResNetEncoder(nn.Module):
             nn.ReLU(True),
         )
 
-    def forward(self, depth: torch.Tensor) -> torch.Tensor:
-        """depth ``[N, H, W, 1]`` -> ``[N, C, fh, fw]``."""
-        x = depth.to(self.compression[0].weight.dtype).permute(0, 3, 1, 2)
-        return self.compression(self.backbone(F.avg_pool2d(x, 2)))
+    def forward(self, observations: Dict[str, torch.Tensor],
+                update_stats: bool = False) -> torch.Tensor:
+        """``rgb`` ``[N, H, W, 3]`` and/or ``depth`` ``[N, H, W, 1]`` ->
+        ``[N, C, fh, fw]``."""
+        dtype = self.compression[0].weight.dtype
+        x = F.avg_pool2d(visual_input(observations, self.vis_types, dtype), 2)
+        if self.running_mean_and_var is not None:
+            x = self.running_mean_and_var(x, update_stats=update_stats, dtype=dtype)
+        return self.compression(self.backbone(x))
 
 
 class _Net(nn.Module):
-    def __init__(self, image_size, hidden_size, baseplanes, backbone, num_recurrent_layers):
+    def __init__(self, image_size, hidden_size, baseplanes, backbone, num_recurrent_layers,
+                 vis_types, rnn_type, normalize_visual_inputs):
         super().__init__()
-        self.visual_encoder = PolicyResNetEncoder(image_size, baseplanes, backbone)
+        self.visual_encoder = PolicyResNetEncoder(image_size, baseplanes, backbone, vis_types,
+                                                  normalize_visual_inputs)
         flat = math.prod(self.visual_encoder.output_shape)
         self.visual_fc = nn.Sequential(nn.Flatten(), nn.Linear(flat, hidden_size),
                                        nn.ReLU(True))
@@ -70,7 +120,7 @@ class _Net(nn.Module):
         self.prev_action_embedding = nn.Embedding(N_ACTS + 1, PREV_ACTION_EMBED_DIM)
         self.state_encoder = RNNStateEncoder(
             hidden_size + GOAL_EMBED_DIM + PREV_ACTION_EMBED_DIM, hidden_size,
-            num_recurrent_layers)
+            num_recurrent_layers, rnn_type)
 
 
 class _CategoricalHead(nn.Module):
@@ -85,19 +135,15 @@ class _CriticHead(nn.Module):
         self.fc = nn.Linear(hidden_size, 1)
 
 
-class PointNavActorCritic(nn.Module):
-    """Returns (logits ``[B, 4]``, value ``[B, 1]``, hidden'), B = N for one
-    step and T*N for a sequence."""
+class _ActorCritic(nn.Module):
+    """What both policies share: the heads, the recurrent state's shape and
+    the sequence handling around ``_features``."""
 
-    # the observations the forward reads
-    observation_keys = ("depth", "pointgoal_with_gps_compass")
-
-    def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
-                 baseplanes: int = 32, backbone: str = "resnet18",
-                 num_recurrent_layers: int = NUM_RECURRENT_LAYERS):
+    def __init__(self, net: nn.Module, hidden_size: int):
         super().__init__()
         self.hidden_size = hidden_size
-        self.net = _Net(image_size, hidden_size, baseplanes, backbone, num_recurrent_layers)
+        self.net = net
+        self.observation_keys = net.visual_encoder.vis_types + (GOAL_KEY,)
         self.action_distribution = _CategoricalHead(hidden_size)
         self.critic = _CriticHead(hidden_size)
 
@@ -110,35 +156,100 @@ class PointNavActorCritic(nn.Module):
                            device=device)
 
     def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
-                prev_actions: torch.Tensor, masks: torch.Tensor):
-        """observations: ``depth`` ``[N, H, W, 1]`` and
-        ``pointgoal_with_gps_compass`` ``[N, 2]``; hidden ``[2L, N, H]``;
-        prev_actions ``[N, 1]`` int; masks ``[N, 1]`` float.  Or a sequence:
-        each with a leading time axis, ``[T, N, ...]``."""
-        net = self.net
+                prev_actions: torch.Tensor, masks: torch.Tensor, update_stats: bool = False):
+        """observations: those of ``observation_keys``, ``[N, ...]``
+        (``pointgoal_with_gps_compass`` ``[N, 2]``); hidden
+        ``[num_packed_hidden, N, H]``; prev_actions ``[N, 1]`` int; masks
+        ``[N, 1]`` float.  Or a sequence: each with a leading time axis,
+        ``[T, N, ...]``."""
         seq = prev_actions.dim() == 3
         if seq:
             t, n = prev_actions.shape[:2]
             observations = {k: observations[k].reshape((t * n,) + observations[k].shape[2:])
                             for k in self.observation_keys}
             prev_actions, masks = prev_actions.reshape(t * n, 1), masks.reshape(t * n, 1)
-        vis = net.visual_fc(net.visual_encoder(observations["depth"]))
-        goal = observations["pointgoal_with_gps_compass"].to(vis.dtype)
+        x = self._features(observations, prev_actions, masks, update_stats)
+        encoder = self.net.state_encoder
+        if seq:
+            x, hidden = encoder(x.reshape(t, n, -1), hidden.to(x.dtype),
+                                masks.reshape(t, n, 1).to(x.dtype))
+            x = x.reshape(t * n, -1)
+        else:
+            x, hidden = encoder(x, hidden.to(x.dtype), masks.to(x.dtype))
+        logits = self.action_distribution.linear(x)
+        value = self.critic.fc(x)
+        return logits, value, hidden
+
+
+class PointNavActorCritic(_ActorCritic):
+    """Returns (logits ``[B, 4]``, value ``[B, 1]``, hidden'), B = N for one
+    step and T*N for a sequence.  ``observation_keys`` are the observations
+    the forward reads."""
+
+    def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
+                 baseplanes: int = 32, backbone: str = "resnet18",
+                 num_recurrent_layers: int = NUM_RECURRENT_LAYERS,
+                 vis_types: Sequence[str] = ("depth",), rnn_type: str = "LSTM",
+                 normalize_visual_inputs: bool = False):
+        super().__init__(_Net(image_size, hidden_size, baseplanes, backbone,
+                              num_recurrent_layers, vis_types, rnn_type,
+                              normalize_visual_inputs), hidden_size)
+
+    def _features(self, observations, prev_actions, masks, update_stats):
+        net = self.net
+        vis = net.visual_fc(net.visual_encoder(observations, update_stats))
+        goal = observations[GOAL_KEY].to(vis.dtype)
         goal3 = torch.stack([goal[:, 0], torch.cos(-goal[:, 1]),
                              torch.sin(-goal[:, 1])], dim=-1)
         # +1 shift so action "none" (episode start, masked to 0) has its own row
         prev_idx = ((prev_actions.float() + 1.0) * masks.float()).long()
-        x = torch.cat([vis, net.tgt_embeding(goal3),
-                       net.prev_action_embedding(prev_idx[:, 0])], dim=-1)
-        if seq:
-            x, hidden = net.state_encoder(x.reshape(t, n, -1), hidden.to(x.dtype),
-                                          masks.reshape(t, n, 1).to(x.dtype))
-            x = x.reshape(t * n, -1)
-        else:
-            x, hidden = net.state_encoder(x, hidden.to(x.dtype), masks.to(x.dtype))
-        logits = self.action_distribution.linear(x)
-        value = self.critic.fc(x)
-        return logits, value, hidden
+        return torch.cat([vis, net.tgt_embeding(goal3),
+                          net.prev_action_embedding(prev_idx[:, 0])], dim=-1)
+
+
+class SimpleCNNEncoder(nn.Module):
+    """The baseline's encoder: VALID convs 8/4, 4/2 and 3/1 to 32, 64 and 32
+    channels (ReLU after the first two), a CHW flatten, a Linear and a
+    ReLU, as the reference's ``cnn`` Sequential."""
+
+    def __init__(self, image_size: Tuple[int, int] = (192, 341),
+                 vis_types: Sequence[str] = ("rgb", "depth"), output_size: int = 512):
+        super().__init__()
+        self.vis_types = _vis_types(vis_types)
+        h, w = image_size
+        for k, s in ((8, 4), (4, 2), (3, 1)):
+            h, w = (h - k) // s + 1, (w - k) // s + 1
+        self.cnn = nn.Sequential(
+            nn.Conv2d(_channels(self.vis_types), 32, 8, stride=4), nn.ReLU(True),
+            nn.Conv2d(32, 64, 4, stride=2), nn.ReLU(True),
+            nn.Conv2d(64, 32, 3, stride=1),
+            nn.Flatten(), nn.Linear(32 * h * w, output_size), nn.ReLU(True))
+
+    def forward(self, observations: Dict[str, torch.Tensor]) -> torch.Tensor:
+        dtype = self.cnn[0].weight.dtype
+        return self.cnn(visual_input(observations, self.vis_types, dtype))
+
+
+class _BaselineNet(nn.Module):
+    def __init__(self, image_size, hidden_size, vis_types):
+        super().__init__()
+        self.visual_encoder = SimpleCNNEncoder(image_size, vis_types, hidden_size)
+        self.state_encoder = RNNStateEncoder(hidden_size + GOAL_POLAR_DIM, hidden_size, 1,
+                                             "GRU")
+
+
+class PointNavBaselineActorCritic(_ActorCritic):
+    """SimpleCNN + one-layer GRU over ``[vis, rho, phi]`` (no previous-action
+    embedding); packed hidden ``[1, N, H]``.  ``update_stats`` is taken and
+    ignored: the baseline has no whitening."""
+
+    def __init__(self, image_size: Tuple[int, int] = (192, 341), hidden_size: int = 512,
+                 vis_types: Sequence[str] = ("rgb", "depth")):
+        super().__init__(_BaselineNet(image_size, hidden_size, vis_types), hidden_size)
+
+    def _features(self, observations, prev_actions, masks, update_stats):
+        vis = self.net.visual_encoder(observations)
+        return torch.cat([vis, observations[GOAL_KEY].to(vis.dtype)], dim=-1)
 
 
 def sample_action(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:

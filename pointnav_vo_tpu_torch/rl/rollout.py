@@ -2,7 +2,8 @@
 
 Preallocated device tensors of shape ``[T+1, N, ...]`` (``[T, N, ...]`` for
 what a step produces), laid out as the JAX storage: observations by key,
-the packed recurrent state ``[T+1, 2L, N, H]``, rewards, value predictions,
+the packed recurrent state ``[T+1, num_packed_hidden, N, H]`` (``2L`` for the
+LSTM, ``L`` for the GRU), rewards, value predictions,
 returns, action log-probs, actions, previous actions and episode masks.
 :meth:`RolloutStorage.insert_step`, :meth:`~RolloutStorage.after_update`
 and :meth:`~RolloutStorage.compute_returns` write in place and return the

@@ -9,8 +9,11 @@ the envs on the host, and, with VO in the loop (the reference's
 ensemble instead of reading the GPS sensor: each new frame's features are
 computed once and paired with the previous frame's, which the last step
 left in a cache, so a det step runs ``bin_counts`` once.  Episode resets
-re-seed the goal from the new episode's sensor.  An update computes the
-returns and runs :func:`rl.ppo.ppo_update`.  Across processes
+re-seed the goal from the new episode's sensor.  A policy with whitening
+buffers (the rgb policies) folds each rollout step's frames into them, as
+the JAX trainer's ``act_step_update_stats``; the update's bootstrap act and
+the PPO update read them as they stand.  An update computes the returns and
+runs :func:`rl.ppo.ppo_update`.  Across processes
 (``torch.distributed``) is not ported yet.
 """
 
@@ -31,6 +34,7 @@ from pointnav_vo_tpu_torch.io.weights import (
     seeded_init_,
 )
 from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
+from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update
 from pointnav_vo_tpu_torch.rl.rollout import RolloutStorage
@@ -40,10 +44,17 @@ GOAL_KEY = "pointgoal_with_gps_compass"
 
 
 @torch.no_grad()
-def act_step(model, observations, hidden, prev_actions, masks, generator=None):
+def act_step(model, observations, hidden, prev_actions, masks, generator=None,
+             update_stats=False):
     """One policy step -> (value, action ``[N, 1]``, logp, hidden'): the
-    mode action, or one drawn from ``generator`` where it is given."""
-    logits, value, new_hidden = model(observations, hidden, prev_actions, masks)
+    mode action, or one drawn from ``generator`` where it is given.  With
+    ``update_stats`` the step first folds its frames into the policy's
+    whitening buffers."""
+    if update_stats:
+        logits, value, new_hidden = model(observations, hidden, prev_actions, masks,
+                                           update_stats=True)
+    else:
+        logits, value, new_hidden = model(observations, hidden, prev_actions, masks)
     action = mode_action(logits) if generator is None else sample_action(generator, logits)
     return value, action, action_log_prob(logits, action), new_hidden
 
@@ -86,6 +97,8 @@ class DDPPOTrainer:
         self.envs = envs
         self.vo = vo_ensemble
         self.vo_fn = vo_fn
+        # rollout steps advance the whitening buffers where the policy has them
+        self.update_stats = any(isinstance(m, RunningMeanAndVar) for m in model.modules())
         if self.vo is not None and self.vo.device != self.device:
             raise ValueError(f"VO ensemble on {self.vo.device}, trainer on {self.device}")
         if generator is None:
@@ -154,7 +167,7 @@ class DDPPOTrainer:
             t0 = time.perf_counter()
             value, action, logp, new_hidden = act_step(
                 self.model, self._last_obs, self.hidden, self.prev_actions, self.masks,
-                self.generator)
+                self.generator, update_stats=self.update_stats)
             actions_np = action[:, 0].cpu().numpy()  # the step's one read-back
             self.timing["act"] += time.perf_counter() - t0
 
@@ -186,7 +199,9 @@ class DDPPOTrainer:
 
     def update_agent(self, order: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """Returns, one PPO update (in ``order``, see ``ppo_update``, or an
-        order drawn from the generator) and the roll to the next rollout."""
+        order drawn from the generator) and the roll to the next rollout.
+        Neither the bootstrap act nor the update moves the whitening
+        buffers."""
         t0 = time.perf_counter()
         next_value, _, _, _ = act_step(self.model, self._last_obs, self.hidden,
                                        self.prev_actions, self.masks)

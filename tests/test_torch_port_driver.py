@@ -27,11 +27,13 @@ import torch
 
 import fake_habitat
 from pointnav_vo_tpu import run as jrun
+from pointnav_vo_tpu.io.checkpoint import save_checkpoint as j_save_checkpoint
 from pointnav_vo_tpu.config.defaults import get_rl_config as j_rl_config
 from pointnav_vo_tpu.config.defaults import get_vo_config as j_vo_config
 from pointnav_vo_tpu.io import torch_import as jimport
 from pointnav_vo_tpu.io.torch_export import save_policy_checkpoint_torch, save_vo_checkpoint_torch
 from pointnav_vo_tpu.models.policy import PointNavActorCritic as JPolicy
+from pointnav_vo_tpu.models.policy import PointNavBaselineActorCritic as JBaseline
 from pointnav_vo_tpu.rl.envs import EnvConfig as JEnvConfig
 from pointnav_vo_tpu.rl.envs import env_config_from_task as j_env_config_from_task
 from pointnav_vo_tpu.utils import logging as jlog
@@ -53,7 +55,12 @@ from pointnav_vo_tpu_torch.io.checkpoint import (
     rng_state_bundle,
     save_checkpoint,
 )
-from pointnav_vo_tpu_torch.io.weights import load_policy_checkpoint, load_vo_checkpoint
+from pointnav_vo_tpu_torch.io.weights import (
+    POLICY_PREFIX,
+    load_policy_checkpoint,
+    load_vo_checkpoint,
+    policy_state_dict_from_jax,
+)
 from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic as TPolicy
 from pointnav_vo_tpu_torch.rl.envs import env_config_from_task
 from pointnav_vo_tpu_torch.utils import logging as tlog
@@ -72,6 +79,7 @@ S = 32  # sensor and VO input size
 HIDDEN = 32
 RTOL, ATOL = 1e-4, 1e-5  # fp32 forwards (tests/test_torch_port_models.py)
 EPISODES = 4
+BASELINE_S = 64  # the baseline's sensors
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -163,14 +171,24 @@ def test_env_config_from_task_matches_jax(noisy):
 # ---------------------------------------------------------------- weights
 
 
-def _jax_policy():
-    jpol = JPolicy(image_size=(S, S), hidden_size=HIDDEN)
-    obs = {"depth": jnp.zeros((1, S, S, 1)), "pointgoal_with_gps_compass": jnp.zeros((1, 2))}
+def _jax_policy(jpol=None, size=S, seed=3):
+    """A JAX policy (the depth LSTM policy by default) and its variables at
+    ``size``; the rgb policies' whitening buffers as if 100 frames were
+    seen."""
+    jpol = jpol or JPolicy(image_size=(S, S), hidden_size=HIDDEN)
+    obs = {"depth": jnp.zeros((1, size, size, 1)), "rgb": jnp.zeros((1, size, size, 3)),
+           "pointgoal_with_gps_compass": jnp.zeros((1, 2))}
     variables = fast_init(jpol, obs, jpol.initial_hidden(1), jnp.zeros((1, 1), jnp.int32),
-                          jnp.zeros((1, 1)), seed=3)
+                          jnp.zeros((1, 1)), seed=seed)
     variables = jax.tree.map(np.asarray, variables)
     # a policy that mostly moves: STOP disfavoured, the rest left to the net
     variables["params"]["action_head"]["bias"] = np.asarray([-2.0, 0.3, 0.0, 0.0], np.float32)
+    if "batch_stats" in variables:
+        variables["batch_stats"]["visual_encoder"]["rmv"] = {
+            "mean": (np.asarray([120.0, 125.0, 130.0, 0.4]) / [255, 255, 255, 1]).astype(
+                np.float32),
+            "var": np.asarray([0.06, 0.05, 0.04, 0.03], np.float32),
+            "count": np.asarray(100.0, np.float32)}
     return jpol, variables
 
 
@@ -198,6 +216,22 @@ def weights(tmp_path_factory):
     save_vo_checkpoint_torch(paths["forward"], {1: experts[0]})
     save_vo_checkpoint_torch(paths["left_right"], {2: experts[1], 3: experts[2]})
     save_vo_checkpoint_torch(paths["single"], experts[1])
+    # the GRU and the rgb-d whitening policy through the JAX exporter
+    for name, module in (("gru", JPolicy(image_size=(S, S), hidden_size=HIDDEN,
+                                         rnn_type="GRU")),
+                         ("rgbd", JPolicy(image_size=(S, S), hidden_size=HIDDEN,
+                                          vis_types=("rgb", "depth"),
+                                          normalize_visual_inputs=True))):
+        paths[name] = str(d / f"rl_{name}.pth")
+        save_policy_checkpoint_torch(paths[name], _jax_policy(module, seed=5)[1])
+    # the baseline (its VALID convs need 36 pixels) has no key in the JAX
+    # exporter: each CLI gets its own format, both from the same variables
+    _, bvars = _jax_policy(JBaseline(hidden_size=HIDDEN), size=BASELINE_S, seed=6)
+    paths["baseline_jax"] = str(d / "rl_baseline.pkl")
+    j_save_checkpoint(paths["baseline_jax"], {"params": bvars["params"]})
+    paths["baseline_port"] = str(d / "rl_baseline.pth")
+    save_checkpoint(paths["baseline_port"], {"state_dict": {
+        POLICY_PREFIX + k: v for k, v in policy_state_dict_from_jax(bvars).items()}})
     return {"paths": paths, "jpol": jpol, "vmodel": vmodel}
 
 
@@ -455,43 +489,44 @@ def _raises_not_ported(fn):
         fn()
 
 
-_RL_UNPORTED = {
-    "classical_vo": ["VO.VO_TYPE", "CLASSICAL"],
-    "gru": ["RL.Policy.rnn_backbone", "GRU"],
-    "baseline_policy": ["RL.Policy.name", "pointnav_baseline_policy"],
-}
+# ---------------------------------------------------------------- the eval's options
 
 
-@pytest.mark.parametrize("name", sorted(_RL_UNPORTED))
-def test_unported_rl_option_raises(name, weights, tmp_path):
-    opts = _rl_opts(weights["paths"], weights["paths"]["policy"]) + _RL_UNPORTED[name]
-    _raises_not_ported(lambda: _cli(trun.main, tmp_path, "rl", "eval", opts, port=True))
-
-
-# ---------------------------------------------------------------- the eval's host options
-
-
+_BASELINE_SENSORS = [x for s in ("DEPTH", "RGB") for side in ("HEIGHT", "WIDTH")
+                     for x in (f"TASK_CONFIG.SIMULATOR.{s}_SENSOR.{side}", str(BASELINE_S))]
+# name -> (the options, the policy checkpoint: one key of the weights'
+# paths, or a "<key>_" whose "_jax" and "_port" files each CLI gets)
 _RL_OPTIONS = {
-    "video": ["VIDEO_OPTION", "[disk]"],
-    "ranked_images": ["EVAL.SAVE_RANKED_IMGS", "True", "EVAL.RANK_TOP_K", "3"],
-    "gps_only_eval": ["VO.USE_VO_MODEL", "False"],
-    "shm_backend": ["ENV_BACKEND", "shm"],
-    "habitat_backend": ["ENV_BACKEND", "habitat"],  # over tests/fake_habitat.py
+    "video": (["VIDEO_OPTION", "[disk]"], "policy"),
+    "ranked_images": (["EVAL.SAVE_RANKED_IMGS", "True", "EVAL.RANK_TOP_K", "3"], "policy"),
+    "gps_only_eval": (["VO.USE_VO_MODEL", "False"], "policy"),
+    "shm_backend": (["ENV_BACKEND", "shm"], "policy"),
+    "habitat_backend": (["ENV_BACKEND", "habitat"], "policy"),  # tests/fake_habitat.py
+    "classical_vo": (["VO.VO_TYPE", "CLASSICAL"], "policy"),
+    "gru": (["RL.Policy.rnn_backbone", "GRU"], "gru"),
+    "rgbd_policy": (["RL.Policy.visual_types", "[rgb, depth]"], "rgbd"),
+    # GPS-only: the VO experts are sized for the other cases' 32x32 frames
+    "baseline_policy": (["RL.Policy.name", "pointnav_baseline_policy",
+                         "VO.USE_VO_MODEL", "False", *_BASELINE_SENSORS], "baseline_"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(_RL_OPTIONS))
 def test_rl_eval_option_matches_jax(name, weights, tmp_path, monkeypatch):
-    """Each option through both CLIs on the same exported ``.pth`` files:
-    the same metrics, and the same videos or ranked images on disk."""
+    """Each option through both CLIs on the same exported weights: the same
+    metrics, and the same videos or ranked images on disk."""
     if name == "habitat_backend":
         monkeypatch.setitem(sys.modules, "habitat", fake_habitat)
-    opts = _rl_opts(weights["paths"], weights["paths"]["policy"]) + _RL_OPTIONS[name]
-    _cli(jrun.main, tmp_path / "jax", "rl", "eval", opts)
-    metrics = _cli(trun.main, tmp_path / "port", "rl", "eval", opts, port=True)
+    extra, key = _RL_OPTIONS[name]
+    paths = weights["paths"]
+    ckpt = {side: paths[key + side if key.endswith("_") else key] for side in ("jax", "port")}
+    _cli(jrun.main, tmp_path / "jax", "rl", "eval", _rl_opts(paths, ckpt["jax"]) + extra)
+    metrics = _cli(trun.main, tmp_path / "port", "rl", "eval",
+                   _rl_opts(paths, ckpt["port"]) + extra, port=True)
     runs = {side: _last_run(tmp_path / side, "rl-eval") for side in ("port", "jax")}
-    got, want = (_eval_outputs(runs[side], "rl_policy") for side in ("port", "jax"))
-    _assert_eval_matches(got, want, vo=name != "gps_only_eval")
+    got, want = (_eval_outputs(runs[side], os.path.splitext(os.path.basename(ckpt[side]))[0])
+                 for side in ("port", "jax"))
+    _assert_eval_matches(got, want, vo=name not in ("gps_only_eval", "baseline_policy"))
     assert metrics["episodes"] == EPISODES and got[0]["total_env_steps"] > 2 * EPISODES
     if name == "gps_only_eval":
         assert "vo_l2_mean" not in got[0] and got[0]["time_act_s"] > 0
@@ -505,6 +540,32 @@ def test_rl_eval_option_matches_jax(name, weights, tmp_path, monkeypatch):
                        for f in files["port"])
         else:
             assert len(files["port"]) == 3 + 1  # the top 3 and the manifest
+
+
+def test_rl_train_and_resume_rgbd_policy_carries_whitening(weights, tmp_path):
+    """``RL.Policy.visual_types [rgb, depth]`` through the port's train CLI:
+    the checkpoint carries the whitening buffers, advanced by every frame of
+    the rollout (2 envs x 4 steps) and read by the JAX package's ``.pth``
+    loader; the resumed run restores them and advances them again over the
+    two updates it runs (it restarts at the stored update, 0)."""
+    rmv = POLICY_PREFIX + "net.visual_encoder.running_mean_and_var."
+    opts = _rl_opts(weights["paths"], "", ("NUM_UPDATES", "1", "RL.TUNE_WITH_VO", "True",
+                                           "RL.Policy.visual_types", "[rgb, depth]"))
+    _cli(trun.main, tmp_path / "a", "rl", "train", opts, port=True)
+    ckpt = os.path.join(_last_run(tmp_path / "a", "rl-train"), "checkpoints",
+                        "ckpt_0.update_0.frames_8.pth")
+    sd = load_checkpoint(ckpt)["state_dict"]
+    assert float(sd[rmv + "_count"]) == 8.0
+    assert sd[rmv + "_mean"].shape == (1, 4, 1, 1) and bool((sd[rmv + "_var"] > 0).all())
+    stats = jimport.load_policy_checkpoint(ckpt)["batch_stats"]["visual_encoder"]["rmv"]
+    np.testing.assert_array_equal(stats["mean"], sd[rmv + "_mean"].numpy().reshape(-1))
+    np.testing.assert_array_equal(stats["count"], sd[rmv + "_count"].numpy())
+    resumed = _cli(trun.main, tmp_path / "b", "rl", "train",
+                   opts + ["NUM_UPDATES", "2", "RESUME_TRAIN", "True", "RESUME_STATE_FILE",
+                           ckpt], port=True)
+    buffers = resumed.model.net.visual_encoder.running_mean_and_var
+    assert resumed.update_idx == 2 and float(buffers._count) == 8.0 + 2 * 8
+    assert not torch.equal(buffers._mean.cpu(), sd[rmv + "_mean"])
 
 
 def test_rl_train_update_over_shm_equals_sync(weights, tmp_path):
