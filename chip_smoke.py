@@ -71,10 +71,10 @@ Phases, each printing a line; any failure exits non-zero:
 8. the CLI (``python -m pointnav_vo_tpu_torch.run``, called as
    ``run.main``) on ``configs/rl/ddppo_pointnav.yaml`` at full width in a
    temporary log root, seeded experts (``VO.REGRESS_MODEL.pretrained
-   False``), a checkpoint every update: train 2 updates (exactly 2 x 128 + 1
-   launches, two checkpoints); eval the checkpoint folder as a sweep (2
+   False``), a checkpoint every update: train 1 update (exactly 128 + 1
+   launches, one checkpoint); eval the checkpoint folder as a sweep (2
    episodes each under a 20-step cap, exactly steps + 1 launches per
-   checkpoint); resume from the last checkpoint to update 3 (it restarts
+   checkpoint); resume from the last checkpoint to update 1 (it restarts
    at the stored update with ``count_steps`` restored); a run with the
    preemption flag set (the interrupted state at update 0, then return).
    Wall time of each run, env-steps/s, checkpoint bytes, sync and async
@@ -146,7 +146,30 @@ Phases, each printing a line; any failure exits non-zero:
    match was accepted, host ms a step, and the batched weighted Kabsch
    over 32 envs of 8-500 synthetic matched points held against the CPU
    (rtol 1e-4, atol 1e-5) and timed. Each path's step or update ms (CUDA
-   events) and peak memory.
+   events) and peak memory;
+14. data-parallel on the one card: 2 ranks spawned by
+   ``parallel/dist.py::spawn`` (the spawn start method: this process holds
+   a CUDA context) share it over gloo, each checked in its own process and
+   reported back: (a) the RL train CLI (``run.run_exp`` as one rank of the
+   group) on ``configs/rl/ddppo_pointnav.yaml`` at full width with 4 envs
+   (2 a rank, one a minibatch) for 2 updates: exactly 2 x 128 + 1
+   launches a rank, the parameters bit-equal to rank 0's after each
+   update, two checkpoints written once (by rank 0), the rollout-step and
+   update ms of each rank and the all-reduce ms of each update with its
+   share (synchronized before and after each call); (b) the first update
+   again on one rank over both ranks' stored rollouts in the union of
+   their minibatch orders (global env indices): each minibatch's mean
+   gradients within relative L2 1e-3, the parameters within 2 lr a step
+   (within 1e-6 where every step's gradient exceeds 1e-2 of its tensor's
+   max), the loss terms rtol 1e-4; (c) the VO joint stage at a global batch
+   of 128 (64 a rank) for 8 steps on in-memory turn pairs: 2 launches a
+   step a rank, parameters, Adam moments and whitening bit-equal across
+   ranks, frame-pairs/s of the whole, and one step (dropout off) against
+   one rank's step on a batch whose halves hold every loss group equally
+   (loss rtol 1e-4, gradients relative L2 1e-3, whitening rtol 1e-5, the
+   parameters as (b)); (d) phase 3's det eval over 16 envs a rank: the
+   one-rank run's exact episode set in its order, per-episode records and
+   aggregates within rtol 1e-4 / atol 1e-5, steps + 1 launches a rank.
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -184,8 +207,8 @@ RL_STEPS = 128  # RL.PPO.num_steps
 RL_UPDATES = 2
 RL_FIXED_UPDATES = 4
 RL_PARITY_STEPS = 16
-CLI_UPDATES = 2  # phase 8: NUM_UPDATES of the train run
-CLI_RESUME_UPDATES = 3
+CLI_UPDATES = 1  # phase 8: NUM_UPDATES of the train run (2 before phase 14 took the time)
+CLI_RESUME_UPDATES = 1
 CLI_EVAL_EPISODES = 2  # EVAL.TEST_EPISODE_COUNT per checkpoint
 CLI_EVAL_CAP = 20  # TASK_CONFIG.ENVIRONMENT.MAX_EPISODE_STEPS of the eval sweep
 AGENT_CAP = 24  # phase 9: the episode's step cap
@@ -216,6 +239,10 @@ ZOO_SENSOR = 256  # phase 12 (e): the envs' render size, resized by VO.OBS_TRANS
 POLICY_UPDATES = 2  # phase 13 (a), (c): NUM_UPDATES of the train runs
 KABSCH_ENVS = 32  # phase 13 (d): the batched Kabsch's envs, 8-500 matched points each
 KABSCH_POINTS = (8, 500)
+DIST_RANKS = 2  # phase 14: ranks sharing the one card
+DIST_RL_ENVS = 4  # phase 14 (a): NUM_PROCESSES, 2 envs a rank, one a minibatch
+DIST_VO_ENTRIES = 128  # phase 14 (c): turn entries, 2 twin-packed batches an epoch
+DIST_VO_EPOCHS = 4  # phase 14 (c): 8 steps
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -560,7 +587,8 @@ def phase_main_path(dev):
     errs = _compare_step(got, want)
     _log("main", "card vs CPU fused step (rtol 1e-3, atol 1e-4; actions equal): "
                  + json.dumps(errs, sort_keys=True))
-    return launches, step_ms, wall, loop_steps
+    episodes = (agg, [dataclasses.asdict(r) for r in ev.results], ev.episode_keys)
+    return launches, step_ms, wall, loop_steps, episodes
 
 
 def _compare_step(got, want):
@@ -2656,6 +2684,434 @@ def phase_policies(dev, card):
     return {"rgbd": rgbd, "gru": gru, "baseline": baseline, "classical": classical}
 
 
+def _flat(tensors):
+    import torch
+
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+
+
+def _equal_to_rank_0(tensors):
+    """Whether this rank's ``tensors`` are bit-equal to rank 0's (rank 0's
+    broadcast: gloo moves CUDA tensors by broadcast and all-reduce only)."""
+    import torch
+    import torch.distributed as td
+
+    mine = torch.cat([t.detach().reshape(-1).view(torch.uint8) for t in tensors])
+    ref = mine.clone()
+    td.broadcast(ref, 0)
+    return bool(torch.equal(mine, ref))
+
+
+def _storage_fields(rollouts):
+    return ([rollouts.observations[k] for k in sorted(rollouts.observations)]
+            + [getattr(rollouts, f) for f in ("hidden_states", "rewards", "value_preds",
+                                              "returns", "action_log_probs", "actions",
+                                              "prev_actions", "masks")])
+
+
+def _concat_storage(parts):
+    """Ranks' rollout storages as one over all their envs, in rank order."""
+    import torch
+
+    from pointnav_vo_tpu_torch.rl.rollout import RolloutStorage
+
+    first = parts[0]
+    fields = {f.name: getattr(first, f.name) for f in dataclasses.fields(first)}
+    out = {}
+    for name, v in fields.items():
+        if name == "observations":
+            out[name] = {k: torch.cat([p.observations[k] for p in parts], 1) for k in v}
+        else:
+            axis = 2 if name == "hidden_states" else 1
+            out[name] = torch.cat([getattr(p, name) for p in parts], axis)
+    return RolloutStorage(**out)
+
+
+def _grads_close(got, want):
+    """The largest error of each gradient over its tensor's max abs."""
+    return max(float((g - w).abs().max()) / (float(w.abs().max()) + 1e-12)
+               for g, w in zip(got, want))
+
+
+def _params_gate(got, want, grads, lr, steps):
+    """Adam's first steps move a weight by about lr sign(g) each: (the
+    largest error, the largest error where every step's gradient exceeds
+    1e-2 of its tensor's max abs, so its sign is certain); gates 2 lr a
+    step and 1e-6."""
+    import torch
+
+    worst = strong_worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        err = (g.detach() - w.detach()).abs()
+        strong = torch.ones_like(err, dtype=torch.bool)
+        for step in grads:
+            strong &= step[i].abs() > 1e-2 * step[i].abs().max()
+        worst = max(worst, float(err.max()))
+        if strong.any():
+            strong_worst = max(strong_worst, float(err[strong].max()))
+    ok = worst <= 2 * lr * steps and strong_worst <= 1e-6
+    return ok, worst, strong_worst
+
+
+def _dist_rl(group, root):
+    """Phase 14 (a) and (b) in one rank: the train CLI over the ranks, then
+    the first update again on one rank."""
+    import torch
+    import torch.distributed as td
+
+    from pointnav_vo_tpu_torch import run
+    from pointnav_vo_tpu_torch.io.checkpoint import AsyncCheckpointWriter
+    from pointnav_vo_tpu_torch.models.running_mean_var import set_stats_group
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl import ppo
+    from pointnav_vo_tpu_torch.rl import trainer as tr
+
+    dev = group.device
+    first, equal, reduce_s, update_s, saves, in_update = {}, [], [], [], [0], [False]
+    real_update, real_reduce, real_save = tr.ppo_update, group.all_reduce_, \
+        AsyncCheckpointWriter.save
+
+    def timed_reduce(tensors, op="sum"):
+        if not in_update[0]:
+            return real_reduce(tensors, op)
+        tensors = list(tensors)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real_reduce(tensors, op)
+        torch.cuda.synchronize(dev)
+        reduce_s[-1] += time.perf_counter() - t0
+        if not first.get("done") and len(tensors) == first["n_params"]:
+            first["grads"].append([t.clone() for t in tensors])  # a minibatch's mean gradients
+        return out
+
+    def update(model, cfg, optimizer, rollouts, order=None, generator=None, clip_param=None):
+        order = ppo.minibatch_order(cfg, rollouts.num_envs, generator)
+        if not first:
+            first.update(rollouts=_concat_storage([rollouts]), order=order.clone(),
+                         state={k: v.clone() for k, v in model.state_dict().items()},
+                         opt=copy.deepcopy(optimizer.state_dict()), grads=[],
+                         n_params=len(optimizer.params), clip=clip_param, cfg=cfg,
+                         total_updates=optimizer.decay_steps)
+        reduce_s.append(0.0)
+        in_update[0] = True
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        stats = real_update(model, cfg, optimizer, rollouts, order=order, clip_param=clip_param)
+        torch.cuda.synchronize(dev)
+        update_s.append(time.perf_counter() - t0)
+        in_update[0] = False
+        first["done"] = True
+        first.setdefault("stats", {k: float(v) for k, v in stats.items()})
+        first.setdefault("params", [p.detach().clone() for p in optimizer.params])
+        equal.append(_equal_to_rank_0(list(model.parameters())))
+        return stats
+
+    def counted_save(self, path, state):
+        saves[0] += 1
+        return real_save(self, path, state)
+
+    args = run.build_parser().parse_args([
+        "--task-type", "rl", "--run-type", "train", "--exp-config", RL_CONFIG,
+        "--log-root", root, "--n-devices", str(group.world),
+        "VO.REGRESS_MODEL.pretrained", "False", "NUM_PROCESSES", str(DIST_RL_ENVS),
+        "NUM_UPDATES", str(RL_UPDATES), "CHECKPOINT_INTERVAL", "1", "LOG_INTERVAL", "1"])
+    tr.ppo_update, group.all_reduce_, AsyncCheckpointWriter.save = \
+        update, timed_reduce, counted_save
+    try:
+        tk.reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer = run.run_exp(args, group)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = tk.launch_counts["bin_counts"]
+    finally:
+        tr.ppo_update, AsyncCheckpointWriter.save = real_update, real_save
+        group.all_reduce_ = real_reduce
+    t = trainer.timing
+    out = {"launches": launches, "saves": saves[0], "params_equal": equal,
+           "count_steps": trainer.count_steps, "wall_s": wall, "timing": dict(t),
+           "rollout_step_ms": (t["act"] + t["env"] + t["vo"]) * 1e3 / (RL_UPDATES * RL_STEPS),
+           "ppo_update_ms": [x * 1e3 for x in update_s],
+           "allreduce_ms": [x * 1e3 for x in reduce_s],
+           "allreduce_share": [r / u for r, u in zip(reduce_s, update_s)]}
+
+    # (b) the first update on one rank: every rank's stored rollout, in rank order
+    mine = _storage_fields(first["rollouts"])
+    parts = [first["rollouts"]]
+    for src in range(1, group.world):
+        bufs = [x.clone() for x in mine]
+        for x in bufs:
+            td.broadcast(x, src)
+        if group.rank == 0:
+            other = _concat_storage([first["rollouts"]])
+            for dst, x in zip(_storage_fields(other), bufs):
+                dst.copy_(x)
+            parts.append(other)
+    orders = group.all_gather_object(first["order"].cpu())
+    if group.rank == 0:
+        n_loc = first["rollouts"].num_envs
+        union = torch.cat([o + r * n_loc for r, o in enumerate(orders)], dim=-1).to(dev)
+        set_stats_group(trainer.model, None)
+        one = copy.deepcopy(trainer.model)
+        one.load_state_dict(first["state"])
+        opt = ppo.make_optimizer(one.parameters(), first["cfg"], first["total_updates"])
+        opt.load_state_dict(first["opt"])
+        grads, real_step = [], opt.step
+
+        def step():
+            grads.append([p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                          for p in opt.params])
+            real_step()
+
+        opt.step = step
+        stats = ppo.ppo_update(one, first["cfg"], opt, _concat_storage(parts), order=union,
+                               clip_param=first["clip"])
+        ok, worst, strong_worst = _params_gate(first["params"], opt.params, first["grads"],
+                                               first["cfg"].lr, len(grads))
+        out["vs_one_rank"] = {
+            "grad_rel_l2": max(_rel_l2(_flat(g), _flat(w)) for g, w in zip(first["grads"], grads)),
+            "grad_err": max(_grads_close(g, w) for g, w in zip(first["grads"], grads)),
+            "param_max_abs": worst, "param_max_abs_strong": strong_worst, "params_ok": ok,
+            "stats": first["stats"], "stats_one_rank": {k: float(v) for k, v in stats.items()},
+            "minibatches": len(grads)}
+    return out
+
+
+def _dist_vo(group):
+    """Phase 14 (c) in one rank: the joint stage over the ranks, then one
+    step against one rank's step on the same global batch."""
+    import itertools
+
+    import torch
+
+    from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    dev = group.device
+    # turns alternate, so a batch in entry order gives each rank's block as
+    # many samples of every loss group: the mean of the ranks' losses is
+    # then the one-rank loss
+    turns = itertools.cycle((TURN_LEFT, TURN_RIGHT))
+    data = MemoryFramePairs.scripted(DIST_VO_ENTRIES, lambda *_: next(turns), SEED + 40,
+                                     twins=True, env_cfg=EnvConfig(image_h=H, image_w=W))
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(SEED + 41)
+    experts = [seeded_init_(icfg.make_model(), g) for _ in range(2)]
+    tcfg = VOTrainConfig(batch_size=TRAIN_BATCH, action_type=(TURN_LEFT, TURN_RIGHT),
+                         geo_invariance_types=("inverse_joint_train",), lr=1.5e-4, seed=SEED)
+    engine = VORegressionEngine(icfg, tcfg, data, device=dev,
+                                experts=[copy.deepcopy(m) for m in experts], group=group)
+    tk.reset_launch_counts()
+    epochs = [engine.train_epoch() for _ in range(DIST_VO_EPOCHS)]
+    launches = tk.launch_counts["bin_counts"]
+    params = [p for m in engine.experts for p in m.parameters()]
+    moments = [engine.opt.state[p][k] for p in params for k in ("exp_avg", "exp_avg_sq")]
+    buffers = [b for m in engine.experts for b in m.buffers()]
+    steps = DIST_VO_EPOCHS * data.num_samples() // TRAIN_BATCH
+    out = {"launches": launches, "steps": steps,
+           "losses": [e["mean_total_loss"] for e in epochs],
+           "frame_pairs_per_s": steps * TRAIN_BATCH / sum(e["epoch_time_s"] for e in epochs),
+           "params_equal": _equal_to_rank_0(params), "moments_equal": _equal_to_rank_0(moments),
+           "whitening_equal": _equal_to_rank_0(buffers)}
+
+    icfg0 = dataclasses.replace(icfg, dropout_p=0.0)
+    batch = next(data.iter_batches(TRAIN_BATCH))
+    many = VORegressionEngine(icfg0, tcfg, device=dev, group=group,
+                              experts=[copy.deepcopy(m) for m in experts])
+    got = many.train_step(batch)
+    if group.rank == 0:
+        one = VORegressionEngine(icfg0, tcfg, device=dev,
+                                 experts=[copy.deepcopy(m) for m in experts])
+        want = one.train_step(batch)
+        p_many = [p for m in many.experts for p in m.parameters()]
+        p_one = [p for m in one.experts for p in m.parameters()]
+        g_many = [p.grad for p in p_many]
+        ok, worst, strong_worst = _params_gate(p_many, p_one, [g_many], tcfg.lr, 1)
+        stats = [(b1, b2) for m1, m2 in zip(many.experts, one.experts)
+                 for b1, b2 in zip(m1.buffers(), m2.buffers())]
+        g_one = [p.grad for p in p_one]
+        out["vs_one_rank"] = {
+            "loss": float(got["total_loss"]), "loss_one_rank": float(want["total_loss"]),
+            "grad_rel_l2": _rel_l2(_flat(g_many), _flat(g_one)),
+            "grad_err": _grads_close(g_many, g_one),
+            "whitening_max_abs": max(float((a - b).abs().max()) for a, b in stats),
+            "whitening_ok": all(torch.allclose(a, b, rtol=1e-5, atol=1e-7) for a, b in stats),
+            "param_max_abs": worst, "param_max_abs_strong": strong_worst, "params_ok": ok}
+    return out
+
+
+def _dist_eval(group):
+    """Phase 14 (d) in one rank: phase 3's det eval over the rank's block of
+    the envs."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.eval import Evaluator
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    dev = group.device
+    n_loc = N_ENVS // group.world
+    vo, policy, _, _ = _build_models(VOInferenceConfig(vis_size_h=H, vis_size_w=W), dev, SEED)
+    envs = make_scripted_vector_env(EnvConfig(image_h=H, image_w=W, max_episode_steps=20),
+                                    n_loc, seed=SEED + group.rank * n_loc)
+    ev = Evaluator(model=policy, envs=envs, vo_ensemble=vo, device=dev, group=group)
+    tk.reset_launch_counts()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    agg = ev.run(N_ENVS)
+    wall = time.perf_counter() - t0
+    mine = range(group.rank * n_loc, (group.rank + 1) * n_loc)
+    # the rank's loop runs until its own envs' episodes have ended
+    loop_steps = max(r.steps for r, k in zip(ev.results, ev.episode_keys) if k[0] in mine)
+    return {"launches": tk.launch_counts["bin_counts"], "loop_steps": loop_steps, "wall_s": wall,
+            "agg": agg, "episodes": [dataclasses.asdict(r) for r in ev.results],
+            "keys": ev.episode_keys}
+
+
+def _dist_rank(group, root):
+    """One rank of phase 14; rank 0 returns every rank's record."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec = {"rank": group.rank, "backend": group.backend, "device": str(group.device),
+           "rl": _dist_rl(group, root)}
+    rec["vo"] = _dist_vo(group)
+    rec["eval"] = _dist_eval(group)
+    rec["wall_s"] = time.perf_counter() - t0
+    return group.all_gather_object(rec)
+
+
+def phase_dist(dev, card, eval_ref):
+    """Data-parallel on one card: DIST_RANKS spawned ranks sharing ``dev``
+    (gloo), the RL train CLI, one update against one rank, the VO joint
+    stage and phase 3's eval, each checked across the ranks."""
+    import shutil
+    import tempfile
+
+    from pointnav_vo_tpu_torch.parallel import dist
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        t0 = time.perf_counter()
+        ranks = dist.spawn(_dist_rank, DIST_RANKS, dev, root)
+        wall = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(
+            glob.glob(os.path.join(root, "rl-train-*"))[0], "checkpoints")))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    r0 = ranks[0]
+    _log("dist", f"{DIST_RANKS} ranks on {r0['device']}, backend "
+                 f"{sorted({r['backend'] for r in ranks})}, wall {wall:.3f} s (spawn included; "
+                 f"ranks' own {[round(r['wall_s'], 3) for r in ranks]} s) on {card}")
+
+    # (a) RL train through the CLI
+    want = RL_UPDATES * RL_STEPS + 1
+    for r in ranks:
+        rl = r["rl"]
+        if (rl["launches"] != want or not all(rl["params_equal"])
+                or len(rl["params_equal"]) != RL_UPDATES
+                or rl["saves"] != (RL_UPDATES if r["rank"] == 0 else 0)
+                or rl["count_steps"] != RL_UPDATES * RL_STEPS * DIST_RL_ENVS):
+            raise AssertionError(f"dist rl, rank {r['rank']}: {json.dumps(rl)}")
+    if len(ckpts) != RL_UPDATES:
+        raise AssertionError(f"dist rl: checkpoints {ckpts}")
+    for r in ranks:
+        rl = r["rl"]
+        _log("dist", f"(a) rank {r['rank']}: train {RL_UPDATES} updates x {RL_STEPS} steps x "
+                     f"{DIST_RL_ENVS // DIST_RANKS} envs, bin_counts launches {rl['launches']}, "
+                     f"parameters equal to rank 0's after each update {rl['params_equal']}, "
+                     f"checkpoint saves {rl['saves']}; rollout step {rl['rollout_step_ms']:.3f} "
+                     f"ms (host clock), each update's ppo_update "
+                     f"{[round(x, 3) for x in rl['ppo_update_ms']]} ms and its all-reduces "
+                     f"{[round(x, 3) for x in rl['allreduce_ms']]} ms, "
+                     f"{[round(100 * x, 2) for x in rl['allreduce_share']]} % (host clock, "
+                     f"synchronized before and after each)")
+    _log("dist", f"(a) checkpoints {ckpts}")
+
+    # (b) the first update against one rank's on the concatenated rollouts
+    b = r0["rl"]["vs_one_rank"]
+    stats_ok = all(abs(b["stats"][k] - v) <= 1e-4 * abs(v) + 1e-6
+                   for k, v in b["stats_one_rank"].items())
+    if not (b["params_ok"] and b["grad_rel_l2"] <= 1e-3 and stats_ok):
+        raise AssertionError(f"dist rl vs one rank: {json.dumps(b)}")
+    _log("dist", "(b) the first update on one rank (both ranks' rollouts, their minibatch "
+                 "orders as global env indices) vs the ranks': each minibatch's mean "
+                 "gradients within relative L2 1e-3, parameters within 2 lr a step (within 1e-6 "
+                 "where every step's gradient exceeds 1e-2 of its max), loss terms rtol 1e-4: "
+                 + json.dumps(b, sort_keys=True))
+
+    # (c) the VO joint stage
+    steps = r0["vo"]["steps"]
+    for r in ranks:
+        v = r["vo"]
+        if (v["launches"] != 2 * steps or not (v["params_equal"] and v["moments_equal"]
+                                               and v["whitening_equal"])
+                or not np.all(np.isfinite(v["losses"]))):
+            raise AssertionError(f"dist vo, rank {r['rank']}: {json.dumps(v)}")
+    c = r0["vo"]["vs_one_rank"]
+    if not (c["params_ok"] and c["grad_rel_l2"] <= 1e-3 and c["whitening_ok"]
+            and abs(c["loss"] - c["loss_one_rank"]) <= 1e-4 * abs(c["loss_one_rank"])):
+        raise AssertionError(f"dist vo vs one rank: {json.dumps(c)}")
+    _log("dist", f"(c) joint stage, global batch {TRAIN_BATCH} ({TRAIN_BATCH // DIST_RANKS} a "
+                 f"rank), {steps} steps: epoch losses {r0['vo']['losses']}, "
+                 f"{r0['vo']['frame_pairs_per_s']:.2f} frame-pairs/s of the whole (host "
+                 f"batches included), bin_counts launches per rank "
+                 f"{[r['vo']['launches'] for r in ranks]}, parameters, Adam moments and "
+                 f"whitening bit-equal across ranks; one step vs one rank (dropout off, loss "
+                 f"rtol 1e-4, all gradients within relative L2 1e-3 (the same function summed "
+                 f"in another float32 order), whitening rtol 1e-5 / atol 1e-7, "
+                 f"parameters as (b)): "
+                 + json.dumps(c, sort_keys=True))
+
+    # (d) phase 3's eval against phase 3's one-rank run
+    agg, episodes, keys = eval_ref
+    e0 = r0["eval"]
+    if e0["keys"] != keys:
+        raise AssertionError(f"dist eval: episode set {e0['keys']} != one rank's {keys}")
+    for r in ranks:
+        if r["eval"]["launches"] != r["eval"]["loop_steps"] + 1:
+            raise AssertionError(f"dist eval, rank {r['rank']}: {r['eval']['launches']} "
+                                 f"launches over {r['eval']['loop_steps']} steps")
+    for got, ref in zip(e0["episodes"], episodes, strict=True):
+        for k, v in ref.items():
+            if isinstance(v, float) and np.isnan(v):
+                bad = not np.isnan(got[k])
+            elif isinstance(v, float):
+                bad = abs(got[k] - v) > 1e-4 * abs(v) + 1e-5
+            else:
+                bad = got[k] != v
+            if bad:
+                raise AssertionError(f"dist eval: episode {got} != one rank's {ref}")
+    for k, v in agg.items():
+        if not k.startswith("time_") and abs(e0["agg"][k] - v) > 1e-4 * abs(v) + 1e-5:
+            raise AssertionError(f"dist eval: {k} {e0['agg'][k]} != one rank's {v}")
+    _log("dist", f"(d) det eval over {N_ENVS} envs ({N_ENVS // DIST_RANKS} a rank): the "
+                 f"one-rank run's {len(keys)} episodes exactly, per-episode records and "
+                 f"aggregates within rtol 1e-4 / atol 1e-5; per rank loop steps "
+                 f"{[r['eval']['loop_steps'] for r in ranks]}, bin_counts launches "
+                 f"{[r['eval']['launches'] for r in ranks]}, wall "
+                 f"{[round(r['eval']['wall_s'], 3) for r in ranks]} s")
+    return {"ranks": DIST_RANKS, "backend": r0["backend"], "wall_s": wall,
+            "checkpoints": ckpts,
+            "rl": [{k: v for k, v in r["rl"].items()} for r in ranks],
+            "vo": [r["vo"] for r in ranks],
+            "eval": [{k: r["eval"][k] for k in ("launches", "loop_steps", "wall_s")}
+                     for r in ranks],
+            "eval_agg": e0["agg"],
+            "launches": {"train_rl": sum(r["rl"]["launches"] for r in ranks),
+                         "train_vo": sum(r["vo"]["launches"] for r in ranks),
+                         "eval": sum(r["eval"]["launches"] for r in ranks)}}
+
+
 def main() -> int:
     import torch
 
@@ -2679,7 +3135,7 @@ def main() -> int:
 
     card = timed("build", phase_build)
     max_err, timings = timed("kernel", phase_kernel, dev)
-    launches, step_ms, wall, loop_steps = timed("main", phase_main_path, dev)
+    launches, step_ms, wall, loop_steps, episodes = timed("main", phase_main_path, dev)
     main_bf16 = timed("main_bf16", phase_main_path_bf16, dev, card)
     rnd_launches, _rnd_ms = timed("rnd", phase_rnd_eval, dev)
     steady = timed("steady", phase_steady_vo, dev, card)
@@ -2691,6 +3147,7 @@ def main() -> int:
     farm = timed("farm", phase_farm, dev, card)
     zoo = timed("zoo", phase_zoo, dev, card)
     pol = timed("policies", phase_policies, dev, card)
+    dist_rec = timed("dist", phase_dist, dev, card, episodes)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -2715,7 +3172,10 @@ def main() -> int:
                "policies_baseline_train": pol["baseline"]["launches"],
                "policies_baseline_eval": pol["baseline"]["eval_launches"],
                "policies_baseline_agent": pol["baseline"]["agent_launches"],
-               "policies_classical_eval": pol["classical"]["launches"]}
+               "policies_classical_eval": pol["classical"]["launches"],
+               "dist_train_rl": dist_rec["launches"]["train_rl"],
+               "dist_train_vo": dist_rec["launches"]["train_vo"],
+               "dist_eval": dist_rec["launches"]["eval"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -2746,6 +3206,7 @@ def main() -> int:
         "farm": farm,
         "zoo": zoo,
         "policies": pol,
+        "dist": dist_rec,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

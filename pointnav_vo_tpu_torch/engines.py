@@ -16,7 +16,13 @@ library (``vo/engine.py``, ``rl/trainer.py``, ``rl/eval.py``):
   (``vo/classical.py``) with ``VO.VO_TYPE: CLASSICAL``, which training
   leaves out, as the JAX package's does.
 
-Every engine runs on ``device`` (``None``: the card).  RL checkpoints are
+Every engine runs on ``device`` (``None``: the card), or as one rank of a
+data-parallel ``group`` (``parallel/dist.py``): the RL engines then step
+the rank's block of the envs, the VO engine trains on the rank's block of
+each batch from its host's shard of the train set, rank 0 alone writes
+checkpoints, TensorBoard, info files and the log file, every rank loads a
+resume checkpoint, and the preemption flag is agreed over the ranks, so
+all of them stop at the same update.  RL checkpoints are
 the reference's ``.pth`` container (``state_dict`` with the
 ``actor_critic.`` prefix) plus ``optimizer``, the generator's state and the
 run's metadata (``full_config``, ``engine_name``, ``update``,
@@ -51,6 +57,7 @@ from pointnav_vo_tpu_torch.io.weights import (
 )
 from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic, PointNavBaselineActorCritic
 from pointnav_vo_tpu_torch.models.vo_cnn import VO_MODEL_NAMES, make_vo_model
+from pointnav_vo_tpu_torch.parallel.dist import rank_seed, shard_slice
 from pointnav_vo_tpu_torch.rl.envs import (
     env_config_from_task,
     make_habitat_vector_env,
@@ -69,6 +76,13 @@ from pointnav_vo_tpu_torch.utils.logging import (
 )
 from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
 from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
+
+
+def _agreed_exit(group) -> bool:
+    """The preemption flag, agreed over ``group``'s ranks where it is given,
+    so all of them stop at the same update."""
+    flag = preemption.should_exit()
+    return flag if group is None else group.any(flag)
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -109,22 +123,29 @@ def make_baseline_policy(config: Config):
 
 
 @registry.register_env(name="NavRLEnv")
-def make_nav_rl_env(config: Config, num_envs: int, seed: int = 0, noisy: bool = True):
+def make_nav_rl_env(config: Config, num_envs: int, seed: int = 0, noisy: bool = True,
+                    group=None):
     """PointNav vector env configured from the task tree.  ``ENV_BACKEND``
     selects the fan-out: "sync" loops scripted envs in process, "shm"
     forks scripted process workers over the shared-memory rings, "habitat"
-    forks habitat-sim workers."""
+    forks habitat-sim workers.  In a ``group`` it builds the rank's
+    contiguous block of the ``num_envs`` envs, env i seeded ``seed + i``
+    as in one process; ``num_envs`` must split evenly over the ranks."""
     backend = config.get("ENV_BACKEND", "sync")
+    block = slice(None)
+    if group is not None:
+        block = shard_slice(num_envs, group.rank, group.world)
     if backend == "habitat":
-        return make_habitat_vector_env(config, num_envs, seed=seed, noisy=noisy)
+        return make_habitat_vector_env(config, num_envs, seed=seed, noisy=noisy, block=block)
     env_cfg = env_config_from_task(config, noisy=noisy, seed=seed)
+    envs = range(num_envs)[block]
     if backend == "shm":
         from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
 
-        return ShmVectorEnv(env_cfg, num_envs, seed=seed)
+        return ShmVectorEnv(env_cfg, len(envs), seed=seed + envs.start)
     if backend != "sync":
         raise ValueError(f"unknown ENV_BACKEND {backend!r} (sync | shm | habitat)")
-    return make_scripted_vector_env(env_cfg, num_envs, seed=seed)
+    return make_scripted_vector_env(env_cfg, len(envs), seed=seed + envs.start)
 
 
 # ---------------------------------------------------------------------------
@@ -159,24 +180,29 @@ def vo_inference_config_from(config: Config, model_node: Config,
     )
 
 
-def _frame_pair_reader(path, vo: Config, act_type, geo_types):
-    """The HDF5 frame-pair reader (``h5py`` is imported inside it)."""
+def _frame_pair_reader(path, vo: Config, act_type, geo_types, shard_index=0, num_shards=1):
+    """The HDF5 frame-pair reader (``h5py`` is imported inside it), over
+    chunk shard ``shard_index`` of ``num_shards``."""
     from pointnav_vo_tpu_torch.vo.dataset import FramePairReader
 
     if not path:
         return None
     return FramePairReader(path, vis_size_w=vo.VIS_SIZE_W, vis_size_h=vo.VIS_SIZE_H,
                            act_type=act_type, geo_invariance_types=geo_types,
-                           partial_data_n_splits=vo.DATASET.PARTIAL_DATA_N_SPLITS)
+                           partial_data_n_splits=vo.DATASET.PARTIAL_DATA_N_SPLITS,
+                           shard_index=shard_index, num_shards=num_shards)
 
 
 @registry.register_vo_engine(name="vo_cnn_regression_geo_invariance_engine")
 class VOGeoInvarianceEngine:
-    """Config-facing wrapper around :class:`vo.engine.VORegressionEngine`."""
+    """Config-facing wrapper around :class:`vo.engine.VORegressionEngine`.
+    In a ``group`` the train set is sharded by host (a JAX process is a
+    host), and eval stays unsharded: in training rank 0 alone evaluates."""
 
-    def __init__(self, config: Config, run_type: str = "train", device=None):
+    def __init__(self, config: Config, run_type: str = "train", device=None, group=None):
         self.device = resolve_device(device)
-        self.logger = get_logger(log_file=config.get("LOG_FILE"))
+        self.group = group
+        self.logger = get_logger(log_file=config.get("LOG_FILE") if self.is_main else None)
         # eval and resume read the config back out of the checkpoint
         resume_state = None
         if run_type == "train" and config.RESUME_TRAIN:
@@ -235,16 +261,21 @@ class VOGeoInvarianceEngine:
             state_dicts = [
                 load_vo_checkpoint(vo.MODEL.pretrained_ckpt[name], ACT_NAME2IDX[name])
                 for name in ("forward", "left", "right") if name in vo.MODEL.pretrained_ckpt]
+        shard = (0, 1) if group is None else (group.node, group.nodes)
         self.engine = VORegressionEngine(
             self.icfg, self.tcfg,
-            train_reader=(_frame_pair_reader(train_path, vo, act_type, geo_types)
+            train_reader=(_frame_pair_reader(train_path, vo, act_type, geo_types, *shard)
                           if run_type == "train" else None),
             eval_reader=_frame_pair_reader(eval_path, vo, act_type, geo_types),
-            device=self.device, state_dicts=state_dicts)
+            device=self.device, state_dicts=state_dicts, group=group)
         if resume_state is not None:
             self.engine.load_ckpt(config.RESUME_STATE_FILE)
         if eval_ckpt is not None:
             self.engine.load_experts(eval_ckpt)
+
+    @property
+    def is_main(self) -> bool:
+        return self.group is None or self.group.is_main
 
     def _save_ckpt(self, epoch: int, writer=None) -> None:
         path = os.path.join(self.config.CHECKPOINT_FOLDER, f"ckpt_epoch_{epoch}.pth")
@@ -270,9 +301,9 @@ class VOGeoInvarianceEngine:
         # epoch checkpoints serialize and hit disk under the next epoch's
         # compute; the writer's close (or drain) makes them durable
         with AsyncCheckpointWriter() as ckpt_writer, \
-                TensorboardWriter(cfg.get("TENSORBOARD_DIR")) as tb:
+                TensorboardWriter(cfg.get("TENSORBOARD_DIR") if self.is_main else None) as tb:
             while self.engine.epoch < self.tcfg.epochs:
-                if preemption.should_exit():
+                if _agreed_exit(self.group):
                     # an earlier periodic write's failure must not block the
                     # interrupted state's save and the requeue
                     err = ckpt_writer.drain_quietly()
@@ -285,9 +316,13 @@ class VOGeoInvarianceEngine:
                     self.logger.info("preempted: interrupted state saved")
                     return
                 stats = self.engine.train_epoch()
+                epoch = self.engine.epoch
+                # every rank: the ranks' generator states are gathered; rank 0 writes
+                self._save_ckpt(epoch, writer=ckpt_writer)
+                if not self.is_main:
+                    continue
                 if self.engine.eval_reader is not None:
                     stats.update({f"eval_{k}": v for k, v in self.engine.evaluate().items()})
-                epoch = self.engine.epoch
                 for k, v in stats.items():
                     if np.isscalar(v):
                         tb.add_scalar(f"train/{k}", float(v), epoch)
@@ -298,7 +333,6 @@ class VOGeoInvarianceEngine:
                              os.path.join(cfg.INFO_DIR, "train_infos.jsonl"))
                 save_info_dict({k: [v] for k, v in scalars.items()},
                                os.path.join(cfg.INFO_DIR, "train_regression_info.p"))
-                self._save_ckpt(epoch, writer=ckpt_writer)
                 self.logger.info(f"epoch {epoch}: loss={stats['mean_total_loss']:.5f} "
                                  f"fps={stats['frame_pairs_per_s']:.1f}")
         return self.engine
@@ -307,9 +341,10 @@ class VOGeoInvarianceEngine:
         save = None
         if self.config.VO.EVAL.save_pred:
             save = os.path.join(self.config.INFO_DIR, "delta_gt_pred.p")
-        metrics = self.engine.evaluate(save_pred_path=save)
-        save_info_dict({k: [v] for k, v in metrics.items()},
-                       os.path.join(self.config.INFO_DIR, "eval_regression_info.p"))
+        metrics = self.engine.evaluate(save_pred_path=save if self.is_main else None)
+        if self.is_main:
+            save_info_dict({k: [v] for k, v in metrics.items()},
+                           os.path.join(self.config.INFO_DIR, "eval_regression_info.p"))
         self.logger.info(f"VO eval: {metrics}")
         return metrics
 
@@ -362,13 +397,16 @@ def _checkpoint_name(interval: int, update: int, count_steps: int) -> str:
 
 
 class _BaseRLEngine:
+    group = None  # a parallel.dist.Group where the engine is one rank of a run
+
     def __init__(self, config: Config, run_type: str = "train", noisy: bool = True,
-                 device=None):
+                 device=None, group=None):
         self.config = config
         self.run_type = run_type
         self.noisy = noisy
         self.device = resolve_device(device)
-        self.logger = get_logger(log_file=config.get("LOG_FILE"))
+        self.group = group
+        self.logger = get_logger(log_file=config.get("LOG_FILE") if self.is_main else None)
         self.model = registry.get_policy(config.RL.Policy.name)(config)
         ppo = config.RL.PPO
         self.ppo_cfg = PPOConfig(
@@ -392,9 +430,14 @@ class _BaseRLEngine:
             reward_window_size=ppo.reward_window_size,
         )
 
+    @property
+    def is_main(self) -> bool:
+        return self.group is None or self.group.is_main
+
     def _make_envs(self):
         return registry.get_env(self.config.ENV_NAME)(
-            self.config, self.config.NUM_PROCESSES, seed=self.config.SEED, noisy=self.noisy)
+            self.config, self.config.NUM_PROCESSES, seed=self.config.SEED, noisy=self.noisy,
+            group=self.group)
 
     # -- training -------------------------------------------------------------
 
@@ -416,8 +459,9 @@ class _BaseRLEngine:
         trainer = DDPPOTrainer(
             model=self.model, ppo_cfg=self.ppo_cfg, envs=envs, device=self.device,
             init_generator=torch.Generator().manual_seed(cfg.SEED),
-            generator=torch.Generator(device=self.device).manual_seed(cfg.SEED),
-            vo_ensemble=vo, total_updates=cfg.NUM_UPDATES)
+            generator=torch.Generator(device=self.device).manual_seed(
+                rank_seed(cfg.SEED, self.group)),
+            vo_ensemble=vo, total_updates=cfg.NUM_UPDATES, group=self.group)
         start_update = 0
         if cfg.RESUME_TRAIN and os.path.isfile(cfg.RESUME_STATE_FILE):
             # a periodic checkpoint or an interrupted state: restart at the
@@ -431,19 +475,21 @@ class _BaseRLEngine:
         self.start_update = start_update
         preemption.install_signal_handlers()
         with AsyncCheckpointWriter() as ckpt_writer, \
-                TensorboardWriter(cfg.get("TENSORBOARD_DIR")) as tb:
+                TensorboardWriter(cfg.get("TENSORBOARD_DIR") if self.is_main else None) as tb:
             for update in range(start_update, cfg.NUM_UPDATES):
-                if preemption.should_exit():
+                if _agreed_exit(self.group):
                     err = ckpt_writer.drain_quietly()
                     if err is not None:
                         self.logger.error(f"earlier async checkpoint write failed: {err!r}")
-                    preemption.save_interrupted_state(self._state(trainer, update))
+                    state = self._state(trainer, update)  # every rank: a gather
+                    if self.is_main:
+                        preemption.save_interrupted_state(state)
                     preemption.requeue_job()
                     self.logger.info("preempted: interrupted state saved")
                     return trainer
                 trainer.collect_rollout()
                 stats = trainer.update_agent()
-                if update % cfg.LOG_INTERVAL == 0:
+                if update % cfg.LOG_INTERVAL == 0 and self.is_main:
                     for k, v in stats.items():
                         tb.add_scalar(f"train/{k}", float(v), update)
                     tb.add_scalar("Simulation/FPS", trainer.count_steps
@@ -452,7 +498,9 @@ class _BaseRLEngine:
                 if update % cfg.CHECKPOINT_INTERVAL == 0:
                     path = os.path.join(cfg.CHECKPOINT_FOLDER, _checkpoint_name(
                         cfg.CHECKPOINT_INTERVAL, update, trainer.count_steps))
-                    ckpt_writer.save(path, self._state(trainer, update))
+                    state = self._state(trainer, update)  # every rank: a gather
+                    if self.is_main:
+                        ckpt_writer.save(path, state)
         return trainer
 
     # -- evaluation -----------------------------------------------------------
@@ -461,7 +509,8 @@ class _BaseRLEngine:
         """One checkpoint, or a sweep over a checkpoint folder: with
         ``EVAL.WAIT_FOR_CKPTS`` > 0 it keeps polling for checkpoints a live
         trainer has yet to write, up to ``EVAL.CKPT_STALE_TIMEOUT_S`` with
-        no new file."""
+        no new file.  In a group rank 0's listing and its decision to give
+        up are every rank's."""
         cfg = self.config
         ckpt_path = ckpt_path or cfg.EVAL.EVAL_CKPT_PATH
         if not (ckpt_path and os.path.isdir(ckpt_path)):
@@ -479,10 +528,13 @@ class _BaseRLEngine:
         while True:
             # only checkpoints: a leftover .tmp of an interrupted save or a
             # stray log must not abort the sweep
-            files = [f for f in os.listdir(ckpt_path)
-                     if f.startswith("ckpt") and f.endswith((".pkl", ".pth"))
-                     and f not in results and f not in abandoned]
-            for f in sorted(files, key=lambda f: os.path.getmtime(os.path.join(ckpt_path, f))):
+            files = sorted((f for f in os.listdir(ckpt_path)
+                            if f.startswith("ckpt") and f.endswith((".pkl", ".pth"))
+                            and f not in results and f not in abandoned),
+                           key=lambda f: os.path.getmtime(os.path.join(ckpt_path, f)))
+            if self.group is not None:
+                files = self.group.broadcast_object(files)
+            for f in files:
                 p = os.path.join(ckpt_path, f)
                 try:
                     results[f] = self._eval_checkpoint(p, num_episodes)
@@ -512,7 +564,11 @@ class _BaseRLEngine:
             # any unevaluated file, even one that failed, counts as progress
             if files:
                 last_progress_t = time.monotonic()
-            elif stale_timeout_s > 0 and time.monotonic() - last_progress_t > stale_timeout_s:
+            stale = (not files and stale_timeout_s > 0
+                     and time.monotonic() - last_progress_t > stale_timeout_s)
+            if self.group is not None:
+                stale = self.group.broadcast_object(stale)
+            if stale:
                 self.logger.error(
                     f"giving up on checkpoint folder {ckpt_path}: no new checkpoints for "
                     f"{stale_timeout_s:.0f}s with {done_count}/{target} evaluated — is the "
@@ -564,7 +620,8 @@ class _BaseRLEngine:
         vo_fn = _build_classical_vo_fn(cfg, self.device) if _uses_classical_vo(cfg) else None
         evaluator = Evaluator(model=self.model, envs=envs, vo_ensemble=vo, vo_fn=vo_fn,
                               device=self.device, deterministic=True,
-                              generator=torch.Generator(device=self.device).manual_seed(cfg.SEED))
+                              generator=torch.Generator(device=self.device).manual_seed(
+                                  rank_seed(cfg.SEED, self.group)), group=self.group)
         n = num_episodes or (cfg.EVAL.TEST_EPISODE_COUNT
                              if cfg.EVAL.TEST_EPISODE_COUNT > 0 else 100)
         video_episodes = 3 if "disk" in cfg.get("VIDEO_OPTION", []) else 0
@@ -575,6 +632,8 @@ class _BaseRLEngine:
                                 video_episodes=video_episodes, ranked_img_dir=ranked_dir,
                                 rank_top_k=cfg.EVAL.get("RANK_TOP_K", 20))
         metrics["wall_clock_s"] = time.perf_counter() - t0
+        if not self.is_main:
+            return metrics
         save_info_dict({k: [v] for k, v in metrics.items()},
                        os.path.join(cfg.INFO_DIR, "eval_infos.p"))
         # per-episode results next to the aggregates, one file a checkpoint

@@ -78,6 +78,34 @@ def restore_generator(generator: torch.Generator, saved: Any, seed: int) -> bool
     return False
 
 
+def generator_states(generator: torch.Generator, group=None) -> Dict[str, Any]:
+    """``{"generator": ...}`` of :func:`generator_state`; in a
+    ``parallel.dist.Group`` also ``rank_generators``, every rank's state in
+    rank order, gathered over the ranks (every rank calls it)."""
+    state = generator_state(generator)
+    if group is None:
+        return {"generator": state}
+    return {"generator": state, "rank_generators": group.all_gather_object(state)}
+
+
+def restore_generators(generator: torch.Generator, state: Mapping, seed: int,
+                       group=None) -> None:
+    """Load what :func:`generator_states` saved.  A rank of a group takes
+    its own rank's state where the checkpoint holds one for each rank of a
+    group of its size, and is seeded afresh from ``(seed, rank)`` where it
+    does not."""
+    from pointnav_vo_tpu_torch.parallel.dist import rank_seed
+
+    saved = state["generator"]
+    if group is not None:
+        gens = state.get("rank_generators") or []
+        if len(gens) != group.world:
+            generator.manual_seed(rank_seed(seed, group))
+            return
+        saved = gens[group.rank]
+    restore_generator(generator, saved, rank_seed(seed, group))
+
+
 def snapshot(state: Any) -> Any:
     """An owned host copy of ``state``: every tensor detached and copied to
     the CPU, every array copied, containers rebuilt.  Taken on the caller's

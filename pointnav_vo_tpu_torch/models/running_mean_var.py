@@ -12,6 +12,11 @@ the updated buffers.  The buffers change under ``torch.no_grad()``: the
 output depends on no parameter.  Both run in the buffers' dtype (float32,
 or float64 for a reference run) whatever the input's; ``dtype`` casts the
 output (bfloat16 compute, as the JAX module's ``dtype``).
+
+With ``group`` (a ``parallel.dist.Group``, set by the trainer or engine
+that runs data-parallel) the batch's ``(s1, s2, count)`` are summed over
+the ranks in one all-reduce before the merge, as the JAX module's ``psum``
+over ``axis_name``: every rank's buffers take the whole global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ class RunningMeanAndVar(nn.Module):
         self.register_buffer("_mean", torch.zeros(1, n_channels, 1, 1))
         self.register_buffer("_var", torch.zeros(1, n_channels, 1, 1))
         self.register_buffer("_count", torch.zeros(()))
+        self.group = None
 
     @torch.no_grad()
     def _update(self, x: torch.Tensor, stats_mask: Optional[torch.Tensor]) -> None:
@@ -37,9 +43,13 @@ class RunningMeanAndVar(nn.Module):
         xs = x.to(c.dtype) - c
         s1 = (xs.mean(dim=(2, 3)) * m).sum(0).view_as(c)
         s2 = ((xs * xs).mean(dim=(2, 3)) * m).sum(0).view_as(c)
+        count = m.sum()
+        if self.group is not None:
+            count = count.to(c.dtype)
+            self.group.all_reduce_([s1, s2, count])
         # a batch none of whose samples count still merges a mass of 1e-6
         # (the JAX module's floor), so the buffers move as they do there
-        new_count = torch.clamp(m.sum(), min=1e-6)
+        new_count = torch.clamp(count, min=1e-6)
         d = s1 / new_count
         new_mean = c + d
         new_var = s2 / new_count - d * d
@@ -61,3 +71,11 @@ class RunningMeanAndVar(nn.Module):
             self._update(x, stats_mask)
         y = (x.to(self._mean.dtype) - self._mean) / torch.sqrt(torch.clamp(self._var, min=1e-2))
         return y if dtype is None else y.to(dtype)
+
+
+def set_stats_group(module: nn.Module, group) -> None:
+    """Sum the whitening statistics of every :class:`RunningMeanAndVar` in
+    ``module`` over ``group``'s ranks (None: this process alone)."""
+    for m in module.modules():
+        if isinstance(m, RunningMeanAndVar):
+            m.group = group

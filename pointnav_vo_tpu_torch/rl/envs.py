@@ -576,12 +576,13 @@ class HabitatNavEnv:
 
 
 def make_habitat_vector_env(config, num_envs: int, seed: int = 0, noisy: bool = True,
-                            backend: str = "shm"):
+                            backend: str = "shm", block: slice = slice(None)):
     """Habitat-backed vector env (the reference's ``construct_envs``): the
     scenes found through ``make_dataset``, shuffled by ``seed``, split round
     robin over the workers, worker i seeded ``seed + i``; over shm process
     workers (each imports habitat-sim in its own process) or, with
-    ``backend="sync"``, an in-process loop."""
+    ``backend="sync"``, an in-process loop.  ``block`` builds only those
+    of the ``num_envs`` workers (a data-parallel rank's)."""
     try:
         import habitat
     except ImportError as e:
@@ -605,13 +606,14 @@ def make_habitat_vector_env(config, num_envs: int, seed: int = 0, noisy: bool = 
                    "reward_measure": config.RL.get("REWARD_MEASURE", "distance_to_goal"),
                    "success_measure": config.RL.get("SUCCESS_MEASURE", "success")}
                   for i in range(num_envs)]
+    workers = range(num_envs)[block]
     if backend == "shm":
         from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
 
-        return ShmVectorEnv(env_cfg, num_envs, seed=seed,
+        return ShmVectorEnv(env_cfg, len(workers), seed=seed + workers.start,
                             env_factory="pointnav_vo_tpu_torch.rl.envs:HabitatNavEnv",
-                            factory_kwargs=per_kwargs)
+                            factory_kwargs=[per_kwargs[i] for i in workers])
     if backend != "sync":
         raise ValueError(f"unknown habitat backend {backend!r} (shm | sync)")
     return VectorEnv([(lambda i=i: HabitatNavEnv(env_cfg, seed=seed + i, **per_kwargs[i]))
-                      for i in range(num_envs)])
+                      for i in workers])

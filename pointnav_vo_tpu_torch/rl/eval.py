@@ -27,8 +27,14 @@ det or rnd mode (rnd: the mean and std over dropout passes, the std
 reported as ``vo_pred_std_mean``); the policy acts by its mode or, with
 ``deterministic=False``, samples.  Both draw from one ``torch.Generator``
 on the device, in the same order on every loop.  ``run`` also writes eval
-videos (``vis/maps.py``) and the worst VO errors as ranked images.  The
-multi-device path is not ported.
+videos (``vis/maps.py``) and the worst VO errors as ranked images.
+
+Over a ``parallel.dist.Group`` (the JAX evaluator's mesh) each rank steps
+its own contiguous block of the envs: the budgets are split over all the
+envs and each rank takes its block's, so the union of the ranks' episodes
+is exactly the one-rank run's set, and the per-episode records are gathered
+over the CPU and aggregated as the one-rank run aggregates them, on every
+rank.  The loop itself runs no collective.
 """
 
 from __future__ import annotations
@@ -158,13 +164,16 @@ class Evaluator:
     ``generator`` (on the device; seeded 0 when not given) feeds the rnd
     dropout and, with ``deterministic=False``, the action draws.  A
     predicted forward translation under ``stuck_thresh`` m counts as near
-    zero."""
+    zero.  With ``group`` (a ``parallel.dist.Group``) ``envs`` is the
+    rank's block of the envs, numbered after the blocks of the ranks
+    before it."""
 
     def __init__(self, *, model, envs, vo_ensemble=None, vo_fn: Optional[Callable] = None,
                  device=None, deterministic=True,
                  generator: Optional[torch.Generator] = None, stuck_thresh: float = 0.01,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None, group=None):
         self.device = resolve_device(device)
+        self.group = group
         self.model = model.to(self.device).eval()
         self.envs = envs
         self.vo = vo_ensemble
@@ -222,14 +231,20 @@ class Evaluator:
         ``rank_top_k`` worst VO steps as images and a manifest.  The counted
         episodes' keys stay in ``episode_keys``, their records in
         ``results``."""
-        envs, dev = self.envs, self.device
+        envs, dev, group = self.envs, self.device, self.group
         n = envs.num_envs
         # reset first: the shm farm learns its workers' episode counts from
         # their first payloads
         obs = envs.reset()
-        budgets_l, num_episodes = episode_budgets(num_episodes, n,
-                                                  envs.number_of_episodes())
-        budgets = np.asarray(budgets_l, np.int64)
+        available = list(envs.number_of_episodes())
+        env0 = 0  # the global index of this rank's first env
+        if group is not None:
+            available = sum(group.all_gather_object(available), [])
+            env0 = group.rank * n
+            if not group.is_main:
+                video_episodes = 0
+        budgets_l, num_episodes = episode_budgets(num_episodes, len(available), available)
+        budgets = np.asarray(budgets_l[env0:env0 + n], np.int64)
         ep_counted = np.zeros(n, np.int64)
         active = budgets > 0
         counted_keys: dict = {}  # an ordered set
@@ -258,6 +273,7 @@ class Evaluator:
         obs_dev = self._to_device(obs)
         episode_rewards = np.zeros(n)
         results: List[EpisodeResult] = []
+        finished_at: List[tuple] = []  # (loop step, global env) of each result
         vo_l2: List[np.ndarray] = []
         vo_std: List[np.ndarray] = []
         drift: List[float] = []
@@ -267,6 +283,7 @@ class Evaluator:
         # fused, act and vo run in one step: their time is "device"
         timing = {"act": 0.0, "env": 0.0, "vo": 0.0, "device": 0.0, "transfer": 0.0}
         steps = 0
+        loop_step = 0
         ep_steps = np.zeros(n, np.int64)
         ep_vo_sum = np.zeros(n)
         ep_vo_cnt = np.zeros(n)
@@ -303,6 +320,7 @@ class Evaluator:
             else:
                 new_obs, rewards, dones, infos = envs.step(actions_np)
             timing["env"] += time.perf_counter() - t0
+            loop_step += 1
             # only steps of counted episodes
             steps += int(active.sum())
             ep_steps += 1
@@ -426,12 +444,12 @@ class Evaluator:
                     # scene and episode ids) is global, so two envs finishing
                     # one episode collide; else the env's own episode count
                     key = info.get("episode_key")
-                    key = ((i, int(info.get("episode_id", ep_counted[i])))
+                    key = ((env0 + i, int(info.get("episode_id", ep_counted[i])))
                            if key is None else tuple(key))
                     if key in counted_keys:
                         raise RuntimeError(
                             f"episode {key} finished twice during exact-set eval "
-                            f"(env {i}, {ep_counted[i]}/{budgets[i]} counted): the env "
+                            f"(env {env0 + i}, {ep_counted[i]}/{budgets[i]} counted): the env "
                             "iterator cycled before its budget was met; check the "
                             "backend's number_of_episodes")
                     counted_keys[key] = None
@@ -455,6 +473,7 @@ class Evaluator:
                         dz_stuck=int(ep_dz_stuck[i]),
                         both_stuck=int(ep_both_stuck[i]),
                     ))
+                    finished_at.append((loop_step, env0 + i))
                     if log_fn:
                         log_fn(len(results), results[-1])
                     ep_counted[i] += 1
@@ -474,9 +493,28 @@ class Evaluator:
                 prev_actions = action
                 masks = self._tensor(~dones)[:, None]
 
+        if len(results) != budgets.sum():
+            raise RuntimeError(f"counted {len(results)} episodes, expected {budgets.sum()}")
+        keys = list(counted_keys)
+        if group is not None:
+            # the one-rank run's order: by the step each episode ended, then env
+            parts = group.all_gather_object(
+                (list(zip(finished_at, keys, results)), steps, timing, vo_l2, vo_std, drift,
+                 vo_near_zero, ranked_records))
+            merged = sorted((rec for p in parts for rec in p[0]), key=lambda r: r[0])
+            keys = [r[1] for r in merged]
+            results = [r[2] for r in merged]
+            steps = sum(p[1] for p in parts)
+            timing = {k: max(p[2][k] for p in parts) for k in timing}
+            vo_l2, vo_std, drift = (sum((p[j] for p in parts), []) for j in (3, 4, 5))
+            vo_near_zero = {k: sum(p[6][k] for p in parts) for k in vo_near_zero}
+            ranked_records = sorted((r for p in parts for r in p[7]),
+                                    key=lambda r: -r["vo_l2"])[: 4 * rank_top_k]
+            if not group.is_main:
+                ranked_img_dir = None
         if len(results) != num_episodes:
             raise RuntimeError(f"counted {len(results)} episodes, expected {num_episodes}")
-        if len(counted_keys) != num_episodes:
+        if len(set(keys)) != num_episodes:
             raise RuntimeError("episode keys not distinct")
 
         agg = {
@@ -498,7 +536,7 @@ class Evaluator:
             "stuck_both": float(sum(r.both_stuck for r in results)),
         }
         self.results = results
-        self.episode_keys = list(counted_keys)
+        self.episode_keys = keys
         if vo_l2:
             cat = np.concatenate(vo_l2)
             agg["vo_l2_mean"] = float(cat.mean())

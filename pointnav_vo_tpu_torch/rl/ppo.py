@@ -12,8 +12,12 @@
   sequence, its recurrent state from slot 0), in a given order of env
   indices or one drawn from a ``torch.Generator``.
 
-Across processes (``torch.distributed``) is not ported yet:
-:func:`distributed_mean_and_var` is the one-process statistic.
+Across ranks (a ``parallel.dist.Group``), as the JAX package's
+``shard_map``'d update: each rank runs its own envs' minibatches in its own
+order, the advantage statistic sums ``(s, sq, n)`` over the ranks, each
+minibatch's gradients are averaged over the ranks before the global-norm
+clip and Adam (so every rank takes the same step), and the loss stats are
+averaged at the end.
 """
 
 from __future__ import annotations
@@ -55,12 +59,14 @@ class PPOConfig:
 
 class PPOOptimizer:
     """Clip by global norm, then Adam; :meth:`step` applies one minibatch's
-    gradients (a parameter without one takes zeros, as optax would)."""
+    gradients (a parameter without one takes zeros, as optax would),
+    averaged over ``group``'s ranks first where it is given."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: PPOConfig,
-                 total_updates: Optional[int] = None):
+                 total_updates: Optional[int] = None, group=None):
         self.params = [p for p in params if p.requires_grad]
         self.cfg = cfg
+        self.group = group
         self.decay_steps = total_updates if cfg.use_linear_lr_decay and total_updates else None
         self.adam = torch.optim.Adam(self.params, lr=cfg.lr, eps=cfg.eps)
         self.count = 0  # optimizer steps taken: the lr schedule's clock
@@ -76,12 +82,14 @@ class PPOOptimizer:
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.group is not None:
+            self.group.all_reduce_(grads, "mean")
         norm = torch.sqrt(sum(g.square().sum() for g in grads))
         max_norm = self.cfg.max_grad_norm
         for p, g in zip(self.params, grads):
             p.grad = torch.where(norm < max_norm, g, g / norm * max_norm)
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr_at(self.count)
+        for pg in self.adam.param_groups:
+            pg["lr"] = self.lr_at(self.count)
         self.adam.step()
         self.count += 1
 
@@ -94,20 +102,23 @@ class PPOOptimizer:
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: PPOConfig,
-                   total_updates: Optional[int] = None) -> PPOOptimizer:
+                   total_updates: Optional[int] = None, group=None) -> PPOOptimizer:
     """Clip-by-global-norm -> Adam, with the optional linear lr decay over
-    ``total_updates`` optimizer steps."""
-    return PPOOptimizer(params, cfg, total_updates)
+    ``total_updates`` optimizer steps; gradients averaged over ``group``."""
+    return PPOOptimizer(params, cfg, total_updates, group)
 
 
-def distributed_mean_and_var(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean and variance over all elements (one process), from the sum and
-    the sum of squares as the JAX package's all-device form."""
+def distributed_mean_and_var(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance over all elements on all of ``group``'s ranks
+    (this process alone where it is None), from the sum and the sum of
+    squares, summed over the ranks in one all-reduce."""
     s = x.sum()
     sq = (x * x).sum()
     # a device tensor: CUDA divides by a host scalar as a multiply by its
     # reciprocal, which the CPU does not
     n = torch.tensor(float(x.numel()), dtype=x.dtype, device=x.device)
+    if group is not None:
+        s, sq, n = group.all_reduce_([s, sq, n])
     mean = s / n
     return mean, sq / n - mean * mean
 
@@ -182,7 +193,9 @@ def ppo_update(model, cfg: PPOConfig, optimizer: PPOOptimizer, rollouts: Rollout
     layer that trains differently).  ``order`` (``[ppo_epoch,
     num_mini_batch, n_per_mb]`` env indices) or ``generator`` gives the
     minibatches.  Returns {value_loss, action_loss, dist_entropy}, each the
-    mean over the minibatches, as device scalars."""
+    mean over the minibatches, as device scalars.  The optimizer's
+    ``group`` makes the update data-parallel: ``rollouts`` and ``order``
+    are then the rank's own envs, and the stats the mean over the ranks."""
     model.train()
     clip = cfg.clip_param if clip_param is None else clip_param
     n_envs = rollouts.num_envs
@@ -190,7 +203,7 @@ def ppo_update(model, cfg: PPOConfig, optimizer: PPOOptimizer, rollouts: Rollout
         raise ValueError(f"{n_envs} envs cannot fill {cfg.num_mini_batch} minibatches")
     advantages = rollouts.returns[:-1] - rollouts.value_preds[:-1]
     if cfg.use_normalized_advantage:
-        mean, var = distributed_mean_and_var(advantages)
+        mean, var = distributed_mean_and_var(advantages, optimizer.group)
         advantages = (advantages - mean) / (torch.sqrt(var) + EPS_PPO)
     if order is None:
         if generator is None:
@@ -211,4 +224,6 @@ def ppo_update(model, cfg: PPOConfig, optimizer: PPOOptimizer, rollouts: Rollout
             optimizer.step()
             stats += torch.stack([x.detach() for x in terms]).to(stats.dtype)
     stats /= cfg.ppo_epoch * cfg.num_mini_batch
+    if optimizer.group is not None:
+        optimizer.group.all_reduce_([stats], "mean")
     return {"value_loss": stats[0], "action_loss": stats[1], "dist_entropy": stats[2]}

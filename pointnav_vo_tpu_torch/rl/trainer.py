@@ -13,8 +13,15 @@ re-seed the goal from the new episode's sensor.  A policy with whitening
 buffers (the rgb policies) folds each rollout step's frames into them, as
 the JAX trainer's ``act_step_update_stats``; the update's bootstrap act and
 the PPO update read them as they stand.  An update computes the returns and
-runs :func:`rl.ppo.ppo_update`.  Across processes
-(``torch.distributed``) is not ported yet.
+runs :func:`rl.ppo.ppo_update`.
+
+Data-parallel over a ``parallel.dist.Group`` (the JAX trainer's mesh):
+each rank steps its own block of the envs, rank 0's weights are broadcast
+at the start, the whitening statistics and the PPO update reduce over the
+ranks, and the env-step count and the finished episodes' rewards are
+merged over the ranks after each rollout, in the order a one-rank run over
+all the envs would see them, so every rank logs and decays the lr and the
+clip as that run would.
 """
 
 from __future__ import annotations
@@ -27,14 +34,15 @@ import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import resolve_device
-from pointnav_vo_tpu_torch.io.checkpoint import generator_state, restore_generator
+from pointnav_vo_tpu_torch.io.checkpoint import generator_states, restore_generators
 from pointnav_vo_tpu_torch.io.weights import (
     POLICY_PREFIX,
     policy_state_dict_from_container,
     seeded_init_,
 )
 from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
-from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
+from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar, set_stats_group
+from pointnav_vo_tpu_torch.parallel.dist import rank_seed
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update
 from pointnav_vo_tpu_torch.rl.rollout import RolloutStorage
@@ -78,14 +86,18 @@ class DDPPOTrainer:
     actions, the minibatch order and rnd-mode VO dropout.  ``vo_ensemble``
     (det or rnd) or ``vo_fn(prev_obs, new_obs, actions_np, infos) -> delta
     [N, 3]`` puts VO in the loop.  ``device=None`` means the card.
+    ``group`` (a ``parallel.dist.Group``) makes it one rank of a
+    data-parallel run over ``envs``, the rank's block of the envs; its
+    generator should then be the rank's own (``parallel.dist.rank_seed``).
     """
 
     def __init__(self, *, model, ppo_cfg: PPOConfig, envs, device=None,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  init_generator: Optional[torch.Generator] = None,
                  generator: Optional[torch.Generator] = None, vo_ensemble=None,
-                 vo_fn=None, total_updates: Optional[int] = None):
+                 vo_fn=None, total_updates: Optional[int] = None, group=None):
         self.device = resolve_device(device)
+        self.group = group
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         else:
@@ -93,6 +105,9 @@ class DDPPOTrainer:
         # training mode throughout: the policy has no layer that acts
         # differently in it, and cuDNN's LSTM backward needs it
         self.model = model.to(self.device).train()
+        if group is not None:
+            group.broadcast_module(self.model)
+        set_stats_group(self.model, group)
         self.cfg = ppo_cfg
         self.envs = envs
         self.vo = vo_ensemble
@@ -102,7 +117,7 @@ class DDPPOTrainer:
         if self.vo is not None and self.vo.device != self.device:
             raise ValueError(f"VO ensemble on {self.vo.device}, trainer on {self.device}")
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
+            generator = torch.Generator(device=self.device).manual_seed(rank_seed(0, group))
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, trainer on {self.device}")
         self.generator = generator
@@ -115,7 +130,7 @@ class DDPPOTrainer:
             self.goal_cart = geo.pointgoal_polar2cartesian(self._last_obs[GOAL_KEY])
         self._vo_feats = None  # the previous frame's VO features
 
-        self.optimizer = make_optimizer(self.model.parameters(), ppo_cfg, total_updates)
+        self.optimizer = make_optimizer(self.model.parameters(), ppo_cfg, total_updates, group)
         self.hidden = self.model.initial_hidden(n, device=self.device)
         self.prev_actions = torch.zeros((n, 1), dtype=torch.int64, device=self.device)
         self.masks = torch.zeros((n, 1), device=self.device)
@@ -163,6 +178,8 @@ class DDPPOTrainer:
     def collect_rollout(self) -> None:
         """``num_steps`` steps of every env into the rollout storage."""
         rollouts = self.rollouts
+        world = 1 if self.group is None else self.group.world
+        finished = []  # (step, env, reward) of each episode that ended
         for step in range(self.cfg.num_steps):
             t0 = time.perf_counter()
             value, action, logp, new_hidden = act_step(
@@ -178,7 +195,7 @@ class DDPPOTrainer:
             self.episode_reward += rewards
             for i, d in enumerate(dones):
                 if d:
-                    self.reward_window.append(self.episode_reward[i])
+                    finished.append((step, i, float(self.episode_reward[i])))
                     self.episode_reward[i] = 0.0
 
             # every upload before the VO work is queued: a copy from pageable
@@ -195,7 +212,14 @@ class DDPPOTrainer:
             self.hidden = new_hidden
             self.prev_actions = action
             self.masks = masks
-            self.count_steps += len(dones)
+            # every rank steps as many envs
+            self.count_steps += len(dones) * world
+        if self.group is not None:
+            n = self.envs.num_envs
+            finished = sorted((s, r * n + i, rew) for r, ranks in
+                              enumerate(self.group.all_gather_object(finished))
+                              for s, i, rew in ranks)
+        self.reward_window.extend(rew for _, _, rew in finished)
 
     def update_agent(self, order: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """Returns, one PPO update (in ``order``, see ``ppo_update``, or an
@@ -223,11 +247,13 @@ class DDPPOTrainer:
     def checkpoint_state(self) -> Dict:
         """The resumable state in the reference's RL ``.pth`` container:
         ``state_dict`` (``actor_critic.`` keys), ``optimizer``, the
-        generator's state, ``count_steps`` and ``update_idx``."""
+        generator's state, ``count_steps`` and ``update_idx``; in a group
+        also every rank's generator state (``rank_generators``), gathered
+        over the ranks: every rank calls this, rank 0 writes it."""
         return {
+            **generator_states(self.generator, self.group),
             "state_dict": {POLICY_PREFIX + k: v for k, v in self.model.state_dict().items()},
             "optimizer": self.optimizer.state_dict(),
-            "generator": generator_state(self.generator),
             "count_steps": self.count_steps,
             "update_idx": self.update_idx,
         }
@@ -235,10 +261,11 @@ class DDPPOTrainer:
     def load_checkpoint_state(self, state: Mapping, seed: int) -> None:
         """Restore :meth:`checkpoint_state` on any device type; a generator
         state saved on another type seeds the generator afresh from
-        ``seed`` (``io.checkpoint.restore_generator``)."""
+        ``seed`` (``io.checkpoint.restore_generators``: a rank of a group
+        takes its own rank's state)."""
         self.model.load_state_dict(policy_state_dict_from_container(state), strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
-        restore_generator(self.generator, state["generator"], seed)
+        restore_generators(self.generator, state, seed, self.group)
         self.count_steps = int(state["count_steps"])
         self.update_idx = int(state["update_idx"])
 

@@ -3,7 +3,7 @@ engine dispatch.
 
     python -m pointnav_vo_tpu_torch.run --task-type {rl,vo} --run-type {train,eval} \\
         [--exp-config configs/...yaml] [--noise 0|1] [--log-root DIR] \\
-        [--device cuda|cpu] [KEY VALUE ...]
+        [--device cuda|cpu] [--n-devices W] [KEY VALUE ...]
 
 - trailing ``KEY VALUE`` pairs override the config;
 - ``--noise 0`` switches VO to the noise-free dataset paths;
@@ -12,7 +12,13 @@ engine dispatch.
 - on eval, the engine name comes from inside the checkpoint where it has
   one;
 - ``--device`` (default: the card) is the device every engine runs on;
-  ``--n-devices`` above 1 is not ported yet.
+- ``--n-devices W`` above 1 runs data-parallel over W ranks, one process
+  each (``parallel/dist.py``): a process started as one of W ranks (under
+  SLURM, or ``torchrun``'s ``RANK``/``WORLD_SIZE``) joins their group;
+  otherwise :func:`main` spawns the W ranks on this host and returns rank
+  0's result where it is data (an eval's metrics; a train run's state is
+  on disk).  A bare ``--device cuda`` spreads the ranks over the host's
+  cards.  A rank that fails fails the run.
 """
 
 from __future__ import annotations
@@ -27,8 +33,8 @@ import torch
 
 import pointnav_vo_tpu_torch.engines  # noqa: F401  populates the registry
 from pointnav_vo_tpu_torch.config.defaults import get_rl_config, get_vo_config
-from pointnav_vo_tpu_torch.engines import not_ported
 from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint
+from pointnav_vo_tpu_torch.parallel import dist
 from pointnav_vo_tpu_torch.utils import registry
 from pointnav_vo_tpu_torch.utils.logging import get_logger, update_config_log
 
@@ -41,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--noise", type=int, default=1)
     p.add_argument("--log-root", type=str, default="train_log")
     p.add_argument("--n-devices", type=int, default=None,
-                   help="devices for data-parallel training (only 1 is ported)")
+                   help="ranks of a data-parallel run, one process each")
     p.add_argument("--device", type=str, default=None,
                    help="torch device of every engine (default: the card)")
     p.add_argument("opts", nargs=argparse.REMAINDER,
@@ -69,11 +75,10 @@ def _log_dir_name(args, config) -> str:
     return os.path.join(args.log_root, "-".join(str(b) for b in bits))
 
 
-def run_exp(args):
-    """Build the config and run the engine; returns what the engine's
-    ``train``/``eval`` returns."""
-    if args.n_devices and args.n_devices > 1:
-        raise not_ported(f"--n-devices {args.n_devices} (training across devices)", "10")
+def run_exp(args, group=None):
+    """Build the config and run the engine, as one rank of ``group``
+    (a ``parallel.dist.Group``) where it is given; returns what the
+    engine's ``train``/``eval`` returns."""
     logger = get_logger()
     paths = [args.exp_config] if args.exp_config else []
     opts = args.opts or []
@@ -87,7 +92,10 @@ def run_exp(args):
     else:
         config = get_rl_config(paths, opts)
 
-    config = update_config_log(config, args.run_type, _log_dir_name(args, config))
+    log_dir = _log_dir_name(args, config)
+    if group is not None:  # one directory, named by rank 0's clock
+        log_dir = group.broadcast_object(log_dir)
+    config = update_config_log(config, args.run_type, log_dir)
 
     random.seed(config.SEED)
     np.random.seed(config.SEED)
@@ -100,16 +108,37 @@ def run_exp(args):
             engine_name = load_checkpoint(ckpt).get("engine_name", engine_name)
 
     logger.info(f"engine: {engine_name}; log dir: {config.LOG_DIR}")
+    device = args.device if group is None else group.device
     if args.task_type == "vo":
-        engine = registry.get_vo_engine(engine_name)(config, args.run_type, device=args.device)
+        engine = registry.get_vo_engine(engine_name)(config, args.run_type, device=device,
+                                                     group=group)
     else:
         engine = registry.get_trainer(engine_name)(config, args.run_type,
-                                                   noisy=bool(args.noise), device=args.device)
+                                                   noisy=bool(args.noise), device=device,
+                                                   group=group)
     return engine.train() if args.run_type == "train" else engine.eval()
 
 
+def _spawned_run(group, args):
+    out = run_exp(args, group)
+    return out if isinstance(out, dict) else None
+
+
 def main(argv=None):
-    return run_exp(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    world = args.n_devices or 1
+    if world == 1:
+        return run_exp(args)
+    group = dist.init_distributed(args.device)
+    if group is None:
+        return dist.spawn(_spawned_run, world, args.device, args)
+    try:
+        if group.world != world:
+            raise ValueError(f"--n-devices {world}, but the process was started as one of "
+                             f"{group.world} ranks")
+        return run_exp(args, group)
+    finally:
+        group.close()
 
 
 if __name__ == "__main__":

@@ -25,6 +25,14 @@ plain ``VOCNN``.  Each train step, on the device:
 
 An expert with no rows in a batch still takes its Adam step (its momentum
 moves it), as in JAX: the gradients are zeroed, never set to None.
+
+Data-parallel over a ``parallel.dist.Group`` (the JAX engine's mesh):
+``batch_size`` stays the batch of a host, whose ranks each train on their
+contiguous block of it (a twin-packed batch whose entries do not split
+evenly is unpacked first), with buckets local to the block, dropout masks
+from the rank's own generator, the whitening statistics summed over the
+ranks and the gradients and metrics averaged over them.  ``evaluate``
+stays unsharded.
 """
 
 from __future__ import annotations
@@ -47,16 +55,18 @@ from pointnav_vo_tpu_torch.common import (
 )
 from pointnav_vo_tpu_torch.io.checkpoint import (
     AsyncCheckpointWriter,
-    generator_state,
+    generator_states,
     load_checkpoint,
-    restore_generator,
+    restore_generators,
     rng_state_bundle,
     save_checkpoint,
 )
 from pointnav_vo_tpu_torch.io.weights import seeded_init_
+from pointnav_vo_tpu_torch.models.running_mean_var import set_stats_group
 from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN, VOCNNActEmbed
+from pointnav_vo_tpu_torch.parallel.dist import rank_seed, shard_slice
 from pointnav_vo_tpu_torch.vo import losses as losses_lib
-from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader
+from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader, unpack_twins
 from pointnav_vo_tpu_torch.vo.ensemble import (
     VOInferenceConfig,
     check_compute_dtype,
@@ -132,6 +142,24 @@ def batch_to_device(batch: FramePairBatch, device) -> Dict[str, torch.Tensor]:
     for k in ("prev_rgb", "cur_rgb", "prev_depth", "cur_depth"):
         out[prefix + k] = t(getattr(batch, k))
     return out
+
+
+_PIXELS = ("prev_rgb", "cur_rgb", "prev_depth", "cur_depth")
+
+
+def shard_frame_pairs(batch: FramePairBatch, rank: int, world: int) -> FramePairBatch:
+    """Rank ``rank``'s contiguous block of a host batch (``P(DATA_AXIS)``
+    on every array): samples ``[r B/W, (r+1) B/W)``, and of a twin-packed
+    batch the entries that expand into them, unpacked first where the
+    entries do not split evenly over the ranks."""
+    b = batch.actions.shape[0]
+    if batch.twins_packed and (b // 2) % world:
+        batch = unpack_twins(batch)
+    rows = shard_slice(b, rank, world)
+    entries = shard_slice(b // 2, rank, world) if batch.twins_packed else rows
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[entries if f.name in _PIXELS else rows]
+        for f in dataclasses.fields(batch) if f.name != "twins_packed"})
 
 
 def obs_pairs_from_batch(arrs: Mapping[str, torch.Tensor],
@@ -267,12 +295,22 @@ class VORegressionEngine:
     (modules) or ``state_dicts`` (one per trained action, in
     ``tcfg.expert_actions`` order), or neither for weights drawn from
     ``tcfg.seed``.  The experts compute in ``icfg``'s precision; their
-    parameters, gradients and Adam state stay in the parameters' dtype."""
+    parameters, gradients and Adam state stay in the parameters' dtype.
+    ``group`` (a ``parallel.dist.Group``) makes it one rank of a
+    data-parallel run: rank 0's weights are broadcast at the start."""
 
     def __init__(self, icfg: VOInferenceConfig, tcfg: VOTrainConfig,
                  train_reader=None, eval_reader=None, device=None,
                  experts: Optional[Sequence[VOCNN]] = None,
-                 state_dicts: Optional[Sequence[Mapping[str, torch.Tensor]]] = None):
+                 state_dicts: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
+                 group=None):
+        self.group = group
+        if group is not None:
+            # the inverse loss pairs adjacent rows: no pair may straddle two ranks
+            rows = (2 if tcfg.joint else 1) * group.local_world
+            if tcfg.batch_size % rows:
+                raise ValueError(f"batch_size {tcfg.batch_size} does not split into "
+                                 f"{group.local_world} equal blocks of whole pairs")
         self.icfg = icfg
         self.tcfg = tcfg
         self.train_reader = train_reader
@@ -292,6 +330,10 @@ class VORegressionEngine:
                              f"{tcfg.action_type!r}, got {len(experts)}")
         check_compute_dtype(experts, icfg)
         self.experts: List[VOCNN] = [m.to(self.device) for m in experts]
+        for m in self.experts:
+            if group is not None:
+                group.broadcast_module(m)
+            set_stats_group(m, group)
         params = [p for m in self.experts for p in m.parameters()]
         for p in params:  # zero, never None: every expert steps every time
             p.grad = torch.zeros_like(p)
@@ -301,7 +343,8 @@ class VORegressionEngine:
         else:
             self.opt = torch.optim.Adam(params, lr=tcfg.lr, eps=tcfg.eps)
         # the dropout masks' generator, on the device
-        self.generator = torch.Generator(device=self.device).manual_seed(tcfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(tcfg.seed, group))
         self.epoch = 0
 
     def _to_device(self, batch: FramePairBatch, pad_to: Optional[int] = None):
@@ -313,8 +356,11 @@ class VORegressionEngine:
         return attach_expert_buckets(arrs, actions, self.tcfg.expert_actions)
 
     def train_step(self, batch: FramePairBatch) -> Dict[str, torch.Tensor]:
-        """One update on a host batch; the metrics stay on the device.  The
+        """One update on a host batch (the whole host's batch in a group:
+        the rank trains on its block); the metrics stay on the device.  The
         step's gradients stay in the parameters' ``.grad`` until the next."""
+        if self.group is not None:
+            batch = shard_frame_pairs(batch, self.group.local_rank, self.group.local_world)
         arrs = self._to_device(batch)
         self.opt.zero_grad(set_to_none=False)
         obs = obs_pairs_from_batch(arrs, self.icfg)
@@ -322,6 +368,10 @@ class VORegressionEngine:
         preds = forward_experts(self.experts, obs, arrs, True, gen)
         total, metrics = vo_loss(preds, arrs, self.tcfg)
         total.backward()
+        if self.group is not None:
+            params = [p for m in self.experts for p in m.parameters()]
+            self.group.all_reduce_([p.grad for p in params], "mean")
+            self.group.all_reduce_(list(metrics.values()), "mean")
         self.opt.step()
         return metrics
 
@@ -405,14 +455,15 @@ class VORegressionEngine:
 
     def checkpoint_state(self) -> Dict:
         """Resumable state: the experts, the optimizer, the dropout
-        generator, the epoch, both configs and the host RNG states."""
+        generator (every rank's in a group: every rank calls this), the
+        epoch, both configs and the host RNG states."""
         return {
             "epoch": self.epoch,
             "train_config": dataclasses.asdict(self.tcfg),
             "inference_config": dataclasses.asdict(self.icfg),
             "experts": [m.state_dict() for m in self.experts],
             "optimizer": self.opt.state_dict(),
-            "generator": generator_state(self.generator),
+            **generator_states(self.generator, self.group),
             "host_rng": rng_state_bundle(),
         }
 
@@ -420,8 +471,11 @@ class VORegressionEngine:
                   writer: Optional[AsyncCheckpointWriter] = None) -> None:
         """:meth:`checkpoint_state` and ``extra`` (the run's metadata) in
         ``torch.save`` form, written atomically; through ``writer`` the
-        write overlaps the next epoch's compute."""
+        write overlaps the next epoch's compute.  In a group every rank
+        calls it and rank 0 writes."""
         state = {**self.checkpoint_state(), **(extra or {})}
+        if self.group is not None and not self.group.is_main:
+            return
         if writer is not None:
             writer.save(path, state)
         else:
@@ -439,10 +493,11 @@ class VORegressionEngine:
     def load_ckpt(self, path: str) -> Dict:
         """Resume from :meth:`checkpoint_state` on any device type; a
         generator state saved on another type seeds the generator afresh
-        from ``tcfg.seed`` (``io.checkpoint.restore_generator``)."""
+        from ``tcfg.seed`` (``io.checkpoint.restore_generators``: a rank of
+        a group takes its own rank's state)."""
         state = self.load_experts(path)
         self.opt.load_state_dict(state["optimizer"])
-        restore_generator(self.generator, state["generator"], self.tcfg.seed)
+        restore_generators(self.generator, state, self.tcfg.seed, self.group)
         self.epoch = state["epoch"]
         return state
 

@@ -597,11 +597,6 @@ def test_unported_vo_option_raises(name, tmp_path):
                                     _VO_UNPORTED[name], port=True))
 
 
-def test_more_than_one_device_raises(tmp_path):
-    _raises_not_ported(lambda: trun.main(["--task-type", "rl", "--run-type", "train",
-                                          "--n-devices", "2", "--log-root", str(tmp_path)]))
-
-
 # ---------------------------------------------------------------- VO CLI
 
 

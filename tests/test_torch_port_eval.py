@@ -2,7 +2,6 @@
 and a short exact-set Evaluator.run of pointnav_vo_tpu_torch against the
 JAX package (CPU), plus the port's import and device rules."""
 
-import math
 import os
 import subprocess
 import sys
@@ -12,7 +11,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch import nn
 
 from pointnav_vo_tpu.models.policy import PointNavActorCritic as JPolicy
 from pointnav_vo_tpu.ops.geometry import pointgoal_polar2cartesian as j_polar2cart
@@ -41,6 +39,7 @@ from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble as TEnsemble
 from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig as TCfg
 from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
 
+from _torch_dist_ranks import Greedy as TGreedy
 from _utils import fast_init
 from test_eval import GreedyGoalPolicy as JGreedy
 
@@ -162,28 +161,6 @@ def test_fused_vo_act_step_matches_jax():
                        (t_logp, j_logp, "logp"), (t_hid, j_hid, "hidden"),
                        (t_rot, j_rot, "est_rot"), (t_pos, j_pos, "est_pos")):
         np.testing.assert_allclose(t, j, rtol=RTOL, atol=ATOL, err_msg=name)
-
-
-class TGreedy(nn.Module):
-    """Torch twin of tests/test_eval.py::GreedyGoalPolicy: turn toward the
-    VO-propagated goal, else forward, STOP when close."""
-
-    def __init__(self, turn_angle_deg=30.0, success_distance=0.36):
-        super().__init__()
-        self.half = math.radians(turn_angle_deg) / 2
-        self.success_distance = success_distance
-
-    def initial_hidden(self, num_envs, device=None):
-        return torch.zeros(1, num_envs, 1, device=device)
-
-    def forward(self, observations, hidden, prev_actions, masks):
-        goal = observations["pointgoal_with_gps_compass"]
-        rho, bearing = goal[:, 0], -goal[:, 1]
-        turn = torch.where(bearing < 0, 2, 3)
-        action = torch.where(rho < self.success_distance, 0,
-                             torch.where(bearing.abs() > self.half, turn, 1))
-        logits = torch.nn.functional.one_hot(action, 4).float() * 100.0
-        return logits, torch.zeros(goal.shape[0], 1), hidden
 
 
 def test_evaluator_run_matches_jax():
