@@ -169,7 +169,26 @@ Phases, each printing a line; any failure exits non-zero:
    (loss rtol 1e-4, gradients relative L2 1e-3, whitening rtol 1e-5, the
    parameters as (b)); (d) phase 3's det eval over 16 envs a rank: the
    one-rank run's exact episode set in its order, per-episode records and
-   aggregates within rtol 1e-4 / atol 1e-5, steps + 1 launches a rank.
+   aggregates within rtol 1e-4 / atol 1e-5, steps + 1 launches a rank;
+15. the VO training diagnostics and dataset generation (full width,
+   seeded experts, TF32 off): (a) the joint stage at batch 128 for 8 steps
+   with ``log_grad`` and ``debug`` off and 8 with both on, on the same
+   batches: step ms of each (CUDA events), every ``grad/*`` metric present
+   and finite, exactly 2 launches a step either way, 2 more for
+   ``grad_snapshot`` and 2 for ``obs_snapshot``; one step at batch 8 on
+   the card and on the CPU: each ``grad/*`` norm within rtol 1e-3, the
+   snapshot's tensors within phase 6's relative L2 of 5e-2, and each
+   top-level module's (and backbone stage's) relative L2 from the float64
+   step printed for both sides; (b) ``debug``: a batch with one NaN
+   ``gt_delta`` raises, and the parameters, whitening statistics and Adam
+   moments stay ``torch.equal`` to before; (c) 256 entries of the
+   generator's rollout (``iter_rollout_entries``, no ``h5py``) from
+   640x360 renders with ``resize_crop`` to 341x192 on the card: entries/s
+   and what it means for the reference's 1M train pairs, each image within
+   the CPU tests' bounds of the CPU transform of the same observation;
+   (d) 500 oracle steps' deltas with VO-sized noise dead-reckoned through
+   ``propagate_goal`` in float32 on the card and on the CPU and in numpy
+   float64: the final goal error of each, card against CPU within 1e-4 m.
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -188,6 +207,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -243,6 +263,19 @@ DIST_RANKS = 2  # phase 14: ranks sharing the one card
 DIST_RL_ENVS = 4  # phase 14 (a): NUM_PROCESSES, 2 envs a rank, one a minibatch
 DIST_VO_ENTRIES = 128  # phase 14 (c): turn entries, 2 twin-packed batches an epoch
 DIST_VO_EPOCHS = 4  # phase 14 (c): 8 steps
+DIAG_ENTRIES = 256  # phase 15 (a): turn entries, 4 twin-packed batches of 64 (128 samples)
+DIAG_STEPS = 8  # phase 15 (a): steps with the diagnostics on, and with them off
+DIAG_NORM_RTOL = 1e-3  # phase 15 (a): each grad/* norm, card against CPU
+GEN_ENTRIES = 256  # phase 15 (c): entries of the generator's rollout
+GEN_SENSOR = (360, 640)  # phase 15 (c): the renders (h, w), resize_crop to W x H
+GEN_RGB_OFF_BY_ONE = 1e-5  # phase 15 (c): the CPU tests' resize_crop bounds: rgb 1 off
+GEN_DEPTH_OFF_BY_ULP = 5e-4  # and depth 1 float16 ulp off, on at most these shares
+REF_PAIRS = 1_000_000  # phase 15 (c): the reference's train set (TRAIN.md)
+FORK_WORKERS = 2  # phase 15 (c): forked writers, each transforming on the card
+FORK_ENTRIES = 64  # phase 15 (c): entries a forked writer rolls
+DR_STEPS = 500  # phase 15 (d): oracle steps dead-reckoned
+DR_NOISE = (0.01, 0.01, 0.0035)  # phase 15 (d): VO-sized error std of (dx m, dz m, dyaw rad)
+DR_TOL_M = 1e-4  # phase 15 (d): final goal, card vs CPU float32 (the CPU test's bound)
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -3112,6 +3145,374 @@ def phase_dist(dev, card, eval_ref):
                          "eval": sum(r["eval"]["launches"] for r in ranks)}}
 
 
+def _grad_groups(experts):
+    """``{group: [grad, ...]}``: each top-level module, and each stage of
+    the encoder's backbone and its compression (``visual_encoder.backbone.
+    layer1``, ...)."""
+    out = {}
+    for m in experts:
+        for name, p in m.named_parameters():
+            parts = name.split(".")
+            for key in {parts[0], ".".join(parts[:3]) if parts[0] == "visual_encoder" else None}:
+                if key:
+                    out.setdefault(key, []).append(p.grad)
+    return out
+
+
+def _diag_parity(dev, icfg, tcfg, batch, reader, experts):
+    """From the same weights on the card, the CPU and the CPU in float64:
+    ``grad_snapshot`` card vs CPU (relative L2 5e-2 a tensor), then one
+    step at batch 8 with ``log_grad``: its norms card vs CPU (rtol
+    DIAG_NORM_RTOL) and each group's gradient distance from float64 on
+    both sides (printed, not gated)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
+
+    runs = {}
+    for name, device, dtype in (("card", dev, torch.float32),
+                                ("cpu", torch.device("cpu"), torch.float32),
+                                ("cpu64", torch.device("cpu"), torch.float64)):
+        engine = VORegressionEngine(icfg, tcfg, reader, device=device,
+                                    experts=[copy.deepcopy(m).to(dtype) for m in experts])
+        # the snapshot first, on the weights both sides share: after a step,
+        # Adam's first update (about lr sign(g)) flips where |g| is rounding
+        snap = engine.grad_snapshot() if dtype == torch.float32 else None
+        metrics = engine.train_step(batch)
+        runs[name] = ({k: float(v) for k, v in metrics.items() if k.startswith("grad/")},
+                      _grad_groups(engine.experts), snap)
+    (n_card, g_card, s_card), (n_cpu, g_cpu, s_cpu), (_, g64, _) = runs.values()
+    norm_err = {k: abs(n_card[k] - v) / abs(v) for k, v in n_cpu.items()}
+    if set(n_card) != set(n_cpu) or len(n_cpu) != 4 or max(norm_err.values()) > DIAG_NORM_RTOL:
+        raise AssertionError(f"grad/* norms card vs CPU: {n_card} vs {n_cpu}")
+    snap_err = {k: _rel_l2(torch.from_numpy(v), torch.from_numpy(s_cpu[k]))
+                for k, v in s_card.items()}
+    if set(s_card) != set(s_cpu) or max(snap_err.values()) > 5e-2:
+        raise AssertionError(f"grad_snapshot card vs CPU: {snap_err}")
+
+    def flat(grads):
+        return torch.cat([g.detach().flatten().cpu().double() for g in grads])
+
+    fp64 = {k: {"card": _rel_l2(flat(g_card[k]), flat(v)), "cpu": _rel_l2(flat(g_cpu[k]), flat(v))}
+            for k, v in sorted(g64.items())}
+    _log("diag", f"B={batch.actions.shape[0]} log_grad step, card vs CPU: grad/* norms "
+                 f"{json.dumps(n_card)} (worst relative error {max(norm_err.values()):.3e}, gate "
+                 f"{DIAG_NORM_RTOL}); grad_snapshot worst tensor relative L2 "
+                 f"{max(snap_err.values()):.3e} over {len(snap_err)} tensors (gate 5e-2)")
+    _log("diag", "gradient relative L2 from the float64 step, by module (card, CPU; not gated): "
+                 + json.dumps({k: [float(f"{v['card']:.3e}"), float(f"{v['cpu']:.3e}")]
+                               for k, v in fp64.items()}))
+    return {"norms_card": n_card, "norms_cpu": n_cpu, "norm_rel_err": norm_err,
+            "snapshot_worst_rel_l2": max(snap_err.values()), "fp64_rel_l2": fp64}
+
+
+def _diag_run(engine, batches, on):
+    """DIAG_STEPS steps cycling over ``batches``, each timed with CUDA
+    events; with ``on`` every step's ``grad/*`` metrics present and finite,
+    then both snapshots.  Launch counts are exact."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    engine.train_step(batches[-1])  # warm-up, not counted
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    step_ms, norms = [], []
+    for i in range(DIAG_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = engine.train_step(batches[i % len(batches)])
+        end.record()
+        norms.append({k: v for k, v in metrics.items() if k.startswith("grad/")})
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    launches = {"steps": tk.launch_counts["bin_counts"]}
+    if launches["steps"] != 2 * DIAG_STEPS:
+        raise AssertionError(f"diag on={on}: {launches['steps']} launches over {DIAG_STEPS} "
+                             "steps; expected 2 a step")
+    want = {"grad/global_norm", "grad/visual_encoder_norm", "grad/visual_fc_norm",
+            "grad/output_head_norm"} if on else set()
+    bad = [i for i, n in enumerate(norms) if set(n) != want
+           or not all(bool(torch.isfinite(v)) and float(v) > 0 for v in n.values())]
+    if bad:
+        raise AssertionError(f"diag on={on}: grad/* metrics of steps {bad}: {norms[bad[0]]}")
+    if on:
+        for name in ("grad_snapshot", "obs_snapshot"):
+            tk.reset_launch_counts()
+            snap = getattr(engine, name)()
+            launches[name] = tk.launch_counts["bin_counts"]
+            if launches[name] != 2 or not all(np.isfinite(v).all() for v in snap.values()):
+                raise AssertionError(f"{name}: {launches[name]} launches; expected 2")
+    return {"step_ms": float(np.mean(step_ms)), "step_ms_each": step_ms, "launches": launches,
+            "last_norms": {k: float(v) for k, v in norms[-1].items()}}
+
+
+def _image_shares(pairs):
+    """(is_rgb, card, CPU) images of one transform, each cast as the
+    generator casts it: rgb within 1, depth within 1 float16 ulp; returns
+    the shares off, checked against phase 15 (c)'s bounds."""
+    rgb_off = depth_off = n_rgb = n_depth = 0
+    for is_rgb, a, b in pairs:
+        if is_rgb:
+            d = np.abs(a.astype(np.uint8).astype(np.int16) - b.astype(np.uint8).astype(np.int16))
+            if d.max() > 1:
+                raise AssertionError(f"rollout rgb {d.max()} off card vs CPU")
+            rgb_off, n_rgb = rgb_off + int((d > 0).sum()), n_rgb + d.size
+        else:
+            a16, b16 = a.astype(np.float16), b.astype(np.float16)
+            d = np.abs(a16.astype(np.float32) - b16.astype(np.float32))
+            if (d > np.spacing(np.abs(b16)).astype(np.float32)).any():
+                raise AssertionError("rollout depth more than 1 float16 ulp off card vs CPU")
+            depth_off, n_depth = depth_off + int((d > 0).sum()), n_depth + d.size
+    shares = {"rgb_off_by_one": rgb_off / n_rgb, "depth_off_by_ulp": depth_off / n_depth}
+    if (shares["rgb_off_by_one"] > GEN_RGB_OFF_BY_ONE
+            or shares["depth_off_by_ulp"] > GEN_DEPTH_OFF_BY_ULP):
+        raise AssertionError(f"rollout card vs CPU transform: {shares}")
+    return shares
+
+
+def forked_rollout(out_dir):
+    """Phase 15 (c)'s forked writers, in a process that has not touched
+    CUDA: the generation CLI's card check for ``--workers``, then
+    FORK_WORKERS forked writers rolling FORK_ENTRIES entries each with
+    ``resize_crop`` on the card, as ``generate_dataset_parallel`` forks
+    them.  The card's machine has no h5py, so each writer saves its
+    entries to ``out_dir/w{i}.npz``; prints one JSON line."""
+    import torch
+
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.dataset import fork_workers, iter_rollout_entries
+    from pointnav_vo_tpu_torch.vo.generate_datasets import make_obs_transform, transform_device
+
+    device = transform_device("cuda", FORK_WORKERS)
+    tf = make_obs_transform("resize_crop", W, H, device)
+    env_cfg = EnvConfig(image_h=GEN_SENSOR[0], image_w=GEN_SENSOR[1])
+
+    def run(i):
+        entries = list(iter_rollout_entries(FORK_ENTRIES, env_cfg=env_cfg,
+                                            seed=SEED + 45 + 1000 * i, obs_transform=tf))
+        np.savez(os.path.join(out_dir, f"w{i}.npz"),
+                 child_used_card=np.asarray(torch.cuda.is_initialized()),
+                 **{k: np.stack([e[k] for e in entries]) for k in entries[0]})
+
+    t0 = time.perf_counter()
+    fork_workers(run, FORK_WORKERS)
+    print(json.dumps({"s": time.perf_counter() - t0,
+                      "parent_initialised_cuda": torch.cuda.is_initialized()}))
+
+
+def _forked_rollout_vs_cpu(out_dir):
+    """Runs :func:`forked_rollout` in a fresh interpreter and holds each
+    writer's entries against the same seed's rollout with the CPU
+    transform: images within the bounds, every other array equal."""
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.vo.dataset import iter_rollout_entries
+    from pointnav_vo_tpu_torch.vo.generate_datasets import make_obs_transform
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.forked_rollout(sys.argv[1])",
+         out_dir], cwd=here, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"the forked writers failed ({out.returncode}): "
+                             f"{out.stderr[-3000:]}")
+    info = json.loads(out.stdout.strip().splitlines()[-1])
+    if info["parent_initialised_cuda"]:
+        raise AssertionError("the forking parent initialised CUDA")
+    tf_cpu = make_obs_transform("resize_crop", W, H, "cpu")
+    env_cfg = EnvConfig(image_h=GEN_SENSOR[0], image_w=GEN_SENSOR[1])
+    pairs = []
+    for i in range(FORK_WORKERS):
+        got = np.load(os.path.join(out_dir, f"w{i}.npz"))
+        if not bool(got["child_used_card"]):
+            raise AssertionError(f"forked writer {i} did not run its transform on the card")
+        want = list(iter_rollout_entries(FORK_ENTRIES, env_cfg=env_cfg,
+                                         seed=SEED + 45 + 1000 * i, obs_transform=tf_cpu))
+        for k in want[0]:
+            w = np.stack([e[k] for e in want])
+            if got[k].shape != w.shape or got[k].dtype != w.dtype:
+                raise AssertionError(f"forked writer {i}: {k} {got[k].shape} {got[k].dtype}")
+            if k.endswith(("rgbs", "depths")):
+                pairs += [(k.endswith("rgbs"), a, b) for a, b in zip(got[k], w)]
+            elif not np.array_equal(got[k], w):
+                raise AssertionError(f"forked writer {i}: {k} differs from the CPU rollout")
+    info.update(_image_shares(pairs), workers=FORK_WORKERS, entries_each=FORK_ENTRIES,
+                entries_per_s=FORK_WORKERS * FORK_ENTRIES / info["s"])
+    return info
+
+
+def _dead_reckon_np(goal, deltas):
+    """``compute_goal_pos`` composed in numpy float64: g' = R_y(-dyaw) (g -
+    [dx, 0, dz])."""
+    g = np.asarray(goal, np.float64)
+    for dx, dz, dyaw in np.asarray(deltas, np.float64):
+        x, y, z = g[0] - dx, g[1], g[2] - dz
+        c, s = np.cos(dyaw), np.sin(dyaw)
+        g = np.asarray([c * x - s * z, y, s * x + c * z])
+    return g
+
+
+def phase_diag(dev, card):
+    """The VO training diagnostics on the card, the generator's rollout
+    with its transform on the card, and the 500-step dead reckoning."""
+    import torch
+
+    from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.ops import geometry as geo
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+    from pointnav_vo_tpu_torch.rl.trainer import propagate_goal
+    from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs, iter_rollout_entries
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+    from pointnav_vo_tpu_torch.vo.generate_datasets import make_obs_transform
+
+    rec = {}
+    # (a) log_grad and debug in the joint stage at batch 128
+    t0 = time.perf_counter()
+    turns = MemoryFramePairs.scripted(
+        DIAG_ENTRIES, lambda _env, _obs, r: r.integers(TURN_LEFT, TURN_RIGHT + 1), SEED + 40,
+        twins=True, env_cfg=EnvConfig(image_h=H, image_w=W))
+    batches = list(turns.iter_batches(TRAIN_BATCH))
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(SEED + 41)
+    experts = [seeded_init_(icfg.make_model(), g) for _ in range(2)]
+    _log("diag", f"{len(turns.entries)} turn entries at {W}x{H} as {len(batches)} twin-packed "
+                 f"batches of {TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for on in (False, True):
+        tcfg = VOTrainConfig(batch_size=TRAIN_BATCH, action_type=(TURN_LEFT, TURN_RIGHT),
+                             geo_invariance_types=("inverse_joint_train",), lr=1.5e-4,
+                             seed=SEED, log_grad=on, debug=int(on))
+        engine = VORegressionEngine(icfg, tcfg, turns, device=dev,
+                                    experts=[copy.deepcopy(m) for m in experts])
+        runs["on" if on else "off"] = (_diag_run(engine, batches, on), engine)
+    off, on = runs["off"][0], runs["on"][0]
+    rec["train"] = {"off": off, "on": on, "cost": on["step_ms"] / off["step_ms"] - 1}
+    _log("diag", f"joint stage B={TRAIN_BATCH}, {DIAG_STEPS} steps on the same batches: "
+                 f"{off['step_ms']:.3f} ms/step with the diagnostics off, {on['step_ms']:.3f} "
+                 f"with log_grad and debug on ({100 * rec['train']['cost']:+.1f} %; CUDA events "
+                 f"around each step, its batch upload included); last norms "
+                 f"{json.dumps(on['last_norms'])}; bin_counts launches off {off['launches']}, "
+                 f"on {on['launches']} on {card}")
+    parity_cfg = VOTrainConfig(batch_size=PARITY_BATCH, action_type=(TURN_LEFT, TURN_RIGHT),
+                               geo_invariance_types=("inverse_joint_train",), lr=1.5e-4,
+                               seed=SEED, log_grad=True)
+    rec["vs_cpu"] = _diag_parity(dev, VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0),
+                                 parity_cfg, next(turns.iter_batches(PARITY_BATCH)), turns,
+                                 experts)
+
+    # (b) debug: a NaN target raises before anything changes
+    engine = runs["on"][1]
+    state = [t.clone() for m in engine.experts for t in m.state_dict().values()]
+    moments = [t.clone() for st in engine.opt.state.values()
+               for t in (st["exp_avg"], st["exp_avg_sq"])]
+    gt = batches[0].gt_delta.copy()
+    gt[3, 1] = np.nan
+    try:
+        engine.train_step(dataclasses.replace(batches[0], gt_delta=gt))
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("VO.debug: a NaN gt_delta did not raise")
+    after = [t for m in engine.experts for t in m.state_dict().values()]
+    after_moments = [t for st in engine.opt.state.values()
+                     for t in (st["exp_avg"], st["exp_avg_sq"])]
+    if not (len(moments) == 2 * sum(1 for m in engine.experts for _ in m.parameters())
+            and all(torch.equal(a, b) for a, b in zip(after, state, strict=True))
+            and all(torch.equal(a, b) for a, b in zip(after_moments, moments, strict=True))):
+        raise AssertionError("VO.debug: the raise changed parameters, statistics or moments")
+    _log("diag", f"debug: a NaN gt_delta raised FloatingPointError ({raised}); "
+                 f"{len(state)} parameter and statistic tensors and {len(moments)} Adam moments "
+                 "unchanged")
+    rec["debug_raised"] = raised
+
+    # (c) the generator's rollout with resize_crop on the card
+    raw, card_out = [], []
+    tf_card = make_obs_transform("resize_crop", W, H, dev)
+
+    def recording(img):
+        raw.append(img.copy())
+        card_out.append(tf_card(img))
+        return card_out[-1]
+
+    env_cfg = EnvConfig(image_h=GEN_SENSOR[0], image_w=GEN_SENSOR[1])
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    entries = list(iter_rollout_entries(GEN_ENTRIES, env_cfg=env_cfg, seed=SEED + 42,
+                                        obs_transform=recording))
+    gen_s = time.perf_counter() - t0
+    if tk.launch_counts["bin_counts"] or len(entries) != GEN_ENTRIES:
+        raise AssertionError(f"the rollout: {len(entries)} entries, "
+                             f"{tk.launch_counts['bin_counts']} launches")
+    tf_cpu = make_obs_transform("resize_crop", W, H, "cpu")
+    t0 = time.perf_counter()
+    cpu_out = [tf_cpu(img) for img in raw]
+    cpu_tf_s = time.perf_counter() - t0
+    shares = _image_shares((img.dtype == np.uint8 or img.shape[-1] == 3, a, b)
+                           for img, a, b in zip(raw, card_out, cpu_out, strict=True))
+    if entries[0]["prev_rgbs"].size != H * W * 3 or entries[0]["cur_depths"].dtype != np.float16:
+        raise AssertionError("the rollout's entries are not at 341x192")
+    rate = GEN_ENTRIES / gen_s
+    rec["rollout"] = {"entries": GEN_ENTRIES, "sensor": list(GEN_SENSOR), "s": gen_s,
+                      "entries_per_s": rate, "images": len(raw), "cpu_transform_s": cpu_tf_s,
+                      "scripted_ref_pairs_hours_one_process": REF_PAIRS / rate / 3600, **shares}
+    _log("diag", f"rollout: {GEN_ENTRIES} entries from {GEN_SENSOR[1]}x{GEN_SENSOR[0]} renders, "
+                 f"resize_crop to {W}x{H} on the card, {gen_s:.3f} s = {rate:.2f} entries/s on "
+                 f"the card's host (the scripted env in one process: {REF_PAIRS} pairs, the "
+                 f"reference's train set, would take {REF_PAIRS / rate / 3600:.2f} h, or that "
+                 f"over --workers; TRAIN.md's habitat renders untransformed at 341x192, at "
+                 f"another rate); the CPU transform of "
+                 f"the same {len(raw)} images took {cpu_tf_s:.3f} s; card vs CPU: "
+                 f"{json.dumps(shares)} (bounds {GEN_RGB_OFF_BY_ONE}, {GEN_DEPTH_OFF_BY_ULP})")
+    with tempfile.TemporaryDirectory() as out_dir:
+        rec["forked"] = _forked_rollout_vs_cpu(out_dir)
+    _log("diag", f"forked writers: {FORK_WORKERS} forked from a fresh process after the "
+                 f"CLI's card check, {FORK_ENTRIES} entries each with resize_crop on the card "
+                 f"in {rec['forked']['s']:.3f} s ({rec['forked']['entries_per_s']:.2f} entries/s, "
+                 f"each child's CUDA start included); every non-image array equal to the CPU "
+                 f"rollout's, images {json.dumps({k: rec['forked'][k] for k in shares})}")
+
+    # (d) DR_STEPS oracle steps dead-reckoned in float32 and float64
+    steps = list(iter_rollout_entries(DR_STEPS, env_cfg=EnvConfig(image_h=32, image_w=32),
+                                      seed=SEED + 43))
+    rot = np.stack([e["delta_rotations"] for e in steps]).astype(np.float64)
+    pos = np.stack([e["delta_positions"] for e in steps]).astype(np.float64)
+    true = np.stack([pos[:, 0], pos[:, 2], 2 * np.arctan2(rot[:, 1], rot[:, 3])], -1)
+    deltas = (true + np.random.default_rng(SEED + 44).normal(0, DR_NOISE, true.shape)
+              ).astype(np.float32)
+    goal0 = geo.pointgoal_polar2cartesian(torch.from_numpy(
+        steps[0]["prev_point_goal_vecs"].astype(np.float32))[None])[0].numpy()
+    finals = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        g32 = torch.from_numpy(goal0)[None].to(device)
+        zero = torch.zeros(1, 1, device=device)
+        polar = torch.zeros(1, 2, device=device)
+        d32 = torch.from_numpy(deltas).to(device)
+        for t in range(DR_STEPS):
+            g32, _ = propagate_goal(g32, d32[t:t + 1], zero, polar)
+        finals[name] = g32[0].cpu().double().numpy()
+    finals["float64"] = _dead_reckon_np(goal0, deltas)
+    finals["noise_free"] = _dead_reckon_np(goal0, true)
+    err = {"card_vs_float64_m": float(np.linalg.norm(finals["card"] - finals["float64"])),
+           "cpu_vs_float64_m": float(np.linalg.norm(finals["cpu"] - finals["float64"])),
+           "card_vs_cpu_m": float(np.linalg.norm(finals["card"] - finals["cpu"])),
+           "vo_noise_m": float(np.linalg.norm(finals["float64"] - finals["noise_free"])),
+           "goal_distance_m": float(np.linalg.norm(finals["float64"]))}
+    _log("diag", f"dead reckoning over {DR_STEPS} oracle steps with VO noise std {DR_NOISE}: "
+                 f"final goal error card float32 vs float64 {err['card_vs_float64_m']:.3e} m, "
+                 f"CPU float32 vs float64 {err['cpu_vs_float64_m']:.3e} m, card vs CPU "
+                 f"{err['card_vs_cpu_m']:.3e} m (gate {DR_TOL_M}); the noise itself moved the "
+                 f"goal {err['vo_noise_m']:.3f} m, {err['goal_distance_m']:.3f} m away")
+    if not all(np.isfinite(v) for v in err.values()) or err["card_vs_cpu_m"] > DR_TOL_M:
+        raise AssertionError(f"dead reckoning: {err}")
+    rec["dead_reckoning"] = err
+    rec["launches"] = {"train_off": off["launches"]["steps"],
+                       "train_on": sum(on["launches"].values())}
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3148,6 +3549,7 @@ def main() -> int:
     zoo = timed("zoo", phase_zoo, dev, card)
     pol = timed("policies", phase_policies, dev, card)
     dist_rec = timed("dist", phase_dist, dev, card, episodes)
+    diag = timed("diag", phase_diag, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -3175,7 +3577,9 @@ def main() -> int:
                "policies_classical_eval": pol["classical"]["launches"],
                "dist_train_rl": dist_rec["launches"]["train_rl"],
                "dist_train_vo": dist_rec["launches"]["train_vo"],
-               "dist_eval": dist_rec["launches"]["eval"]}
+               "dist_eval": dist_rec["launches"]["eval"],
+               "diag_train_off": diag["launches"]["train_off"],
+               "diag_train_on": diag["launches"]["train_on"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -3207,6 +3611,7 @@ def main() -> int:
         "zoo": zoo,
         "policies": pol,
         "dist": dist_rec,
+        "diag": diag,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

@@ -27,9 +27,7 @@ the reference's ``.pth`` container (``state_dict`` with the
 ``actor_critic.`` prefix) plus ``optimizer``, the generator's state and the
 run's metadata (``full_config``, ``engine_name``, ``update``,
 ``count_steps``), so published ``.pth`` files and the port's own load
-through one path.  A config option the port has not ported raises
-``NotImplementedError`` naming its ROADMAP item; none runs without its
-feature.
+through one path.
 """
 
 from __future__ import annotations
@@ -83,12 +81,6 @@ def _agreed_exit(group) -> bool:
     so all of them stop at the same update."""
     flag = preemption.should_exit()
     return flag if group is None else group.any(flag)
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of an option the port does not have yet."""
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md, queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -180,24 +172,36 @@ def vo_inference_config_from(config: Config, model_node: Config,
     )
 
 
-def _frame_pair_reader(path, vo: Config, act_type, geo_types, shard_index=0, num_shards=1):
+def _frame_pair_reader(path, vo: Config, act_type, geo_types, shard_index=0, num_shards=1,
+                       decode_workers=0):
     """The HDF5 frame-pair reader (``h5py`` is imported inside it), over
-    chunk shard ``shard_index`` of ``num_shards``."""
+    chunk shard ``shard_index`` of ``num_shards``; with ``decode_workers``
+    above 0, that many decode processes behind it
+    (``vo/parallel_reader.py``)."""
     from pointnav_vo_tpu_torch.vo.dataset import FramePairReader
 
     if not path:
         return None
-    return FramePairReader(path, vis_size_w=vo.VIS_SIZE_W, vis_size_h=vo.VIS_SIZE_H,
-                           act_type=act_type, geo_invariance_types=geo_types,
-                           partial_data_n_splits=vo.DATASET.PARTIAL_DATA_N_SPLITS,
-                           shard_index=shard_index, num_shards=num_shards)
+    kwargs = dict(path=path, vis_size_w=vo.VIS_SIZE_W, vis_size_h=vo.VIS_SIZE_H,
+                  act_type=act_type, geo_invariance_types=geo_types,
+                  partial_data_n_splits=vo.DATASET.PARTIAL_DATA_N_SPLITS,
+                  shard_index=shard_index, num_shards=num_shards)
+    if decode_workers > 0:
+        from pointnav_vo_tpu_torch.vo.parallel_reader import ParallelDecodeReader
+
+        return ParallelDecodeReader(kwargs, num_workers=decode_workers)
+    return FramePairReader(**kwargs)
 
 
 @registry.register_vo_engine(name="vo_cnn_regression_geo_invariance_engine")
 class VOGeoInvarianceEngine:
     """Config-facing wrapper around :class:`vo.engine.VORegressionEngine`.
     In a ``group`` the train set is sharded by host (a JAX process is a
-    host), and eval stays unsharded: in training rank 0 alone evaluates."""
+    host), and eval stays unsharded: in training rank 0 alone evaluates.
+    ``VO.TRAIN.decode_workers`` above 0 decodes the train set in that many
+    processes (the eval reader stays serial); ``VO.TRAIN.log_grad`` adds
+    the gradient norms to the step metrics and writes one gradient
+    histogram a parameter each epoch; ``VO.debug`` is the NaN check."""
 
     def __init__(self, config: Config, run_type: str = "train", device=None, group=None):
         self.device = resolve_device(device)
@@ -225,12 +229,6 @@ class VOGeoInvarianceEngine:
         self.config = config
         self.run_type = run_type
         vo = config.VO
-        if vo.get("debug", 0):
-            raise not_ported("VO.debug (the NaN check)", "9")
-        if vo.TRAIN.get("log_grad", False):
-            raise not_ported("VO.TRAIN.log_grad (gradient histograms)", "9")
-        if int(vo.TRAIN.get("decode_workers", 0)) > 0:
-            raise not_ported("VO.TRAIN.decode_workers > 0 (process-parallel decode)", "9")
         act_type = vo.TRAIN.action_type
         if isinstance(act_type, list):
             act_type = tuple(act_type)
@@ -253,6 +251,8 @@ class VOGeoInvarianceEngine:
             loss_inv_weight=vo.GEOMETRY.loss_inv_weight,
             log_interval=config.LOG_INTERVAL,
             seed=config.SEED,
+            debug=vo.get("debug", 0),
+            log_grad=vo.TRAIN.get("log_grad", False),
         )
         train_path = vo.DATASET.get("TRAIN_WITH_NOISE") or vo.DATASET.get("TRAIN")
         eval_path = vo.DATASET.get("EVAL_WITH_NOISE") or vo.DATASET.get("EVAL")
@@ -264,7 +264,8 @@ class VOGeoInvarianceEngine:
         shard = (0, 1) if group is None else (group.node, group.nodes)
         self.engine = VORegressionEngine(
             self.icfg, self.tcfg,
-            train_reader=(_frame_pair_reader(train_path, vo, act_type, geo_types, *shard)
+            train_reader=(_frame_pair_reader(train_path, vo, act_type, geo_types, *shard,
+                                             int(vo.TRAIN.get("decode_workers", 0)))
                           if run_type == "train" else None),
             eval_reader=_frame_pair_reader(eval_path, vo, act_type, geo_types),
             device=self.device, state_dicts=state_dicts, group=group)
@@ -326,6 +327,9 @@ class VOGeoInvarianceEngine:
                 for k, v in stats.items():
                     if np.isscalar(v):
                         tb.add_scalar(f"train/{k}", float(v), epoch)
+                if self.tcfg.log_grad and tb.writer is not None:
+                    for name, grad in self.engine.grad_snapshot().items():
+                        tb.add_histogram(f"grad/{name}", grad, epoch)
                 if tb.writer is not None and cfg.VO.TRAIN.get("log_imgs", True):
                     self._log_images(tb, epoch)
                 scalars = {k: v for k, v in stats.items() if np.isscalar(v)}

@@ -33,12 +33,15 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import glob
 import logging
 import os
 import pickle
 import re
 import shutil
 import tempfile
+import time
+import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
@@ -258,8 +261,27 @@ def _spawned_rank(rank, world, device, root, threads):
         if rank == 0:
             with open(os.path.join(root, "result.pkl"), "wb") as f:
                 pickle.dump(out, f)
+    except BaseException:
+        # stamped, so that the launcher reports the rank that failed first,
+        # not a peer's lost connection after it
+        with open(os.path.join(root, f"error.{rank}"), "w") as f:
+            f.write(f"{time.time()!r}\n{traceback.format_exc()}")
+        raise
     finally:
         group.close()
+
+
+def _first_failure(root: str) -> Optional[str]:
+    """The traceback of the rank whose failure came first, if any wrote one."""
+    failures = []
+    for path in glob.glob(os.path.join(root, "error.*")):
+        with open(path) as f:
+            stamp, _, trace = f.read().partition("\n")
+        failures.append((float(stamp), int(path.rsplit(".", 1)[1]), trace))
+    if not failures:
+        return None
+    _, rank, trace = min(failures)
+    return f"rank {rank} failed first:\n{trace}"
 
 
 def spawn(fn: Callable, world: int, device=None, *args):
@@ -268,8 +290,9 @@ def spawn(fn: Callable, world: int, device=None, *args):
     rank 0's result.  The ranks meet through a file store in a temporary
     directory, which also carries ``fn`` and ``args`` (a pipe would hold
     each rank's start until the one before it had read them), and split
-    the caller's torch threads.  A rank that raises stops the others and
-    raises here."""
+    the caller's torch threads.  A rank that raises stops the others, and
+    the first rank's error is raised here (a ``RuntimeError`` carrying its
+    traceback)."""
     import torch.multiprocessing as mp
 
     if world < 1:
@@ -280,9 +303,15 @@ def spawn(fn: Callable, world: int, device=None, *args):
         with open(os.path.join(root, "call.pkl"), "wb") as f:
             pickle.dump((fn, args), f)
         threads = max(1, torch.get_num_threads() // world)
-        mp.start_processes(_spawned_rank, nprocs=world, join=True, start_method="spawn",
-                           args=(world, None if device is None else str(device), root,
-                                 threads))
+        try:
+            mp.start_processes(_spawned_rank, nprocs=world, join=True, start_method="spawn",
+                               args=(world, None if device is None else str(device), root,
+                                     threads))
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            first = _first_failure(root)
+            if first is None:
+                raise
+            raise RuntimeError(first) from e
         with open(os.path.join(root, "result.pkl"), "rb") as f:
             return pickle.load(f)
     finally:

@@ -1,5 +1,4 @@
-"""VO frame-pair datasets, host side (counterpart of ``vo/dataset.py``;
-HDF5 dataset generation is not ported).
+"""VO frame-pair datasets, host side (counterpart of ``vo/dataset.py``).
 
 - :class:`FramePairReader` streams the reference's chunked HDF5 schema
   (``chunk_{k}`` groups: rgb uint8 and depth float16 flattened, global
@@ -15,16 +14,20 @@ HDF5 dataset generation is not ported).
   missing.
 - :class:`PrefetchingLoader` hides the decode behind device work on a
   thread.
+- :func:`generate_dataset` rolls a follower through an env and writes the
+  reference schema; :func:`iter_rollout_entries` is its rollout as an
+  iterator of entries, which needs no ``h5py``, and
+  :func:`generate_dataset_parallel` forks one writer a shard.
 
-``h5py`` is imported inside the reader only, so the engine imports
-without it.  The reader decodes and shuffles; depth discretisation and the
-top-down projection run on the device in the train step.
+``h5py`` is imported inside the reader and the writer only, so the engine
+imports without it.  The reader decodes and shuffles; depth discretisation
+and the top-down projection run on the device in the train step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -447,3 +450,204 @@ class PrefetchingLoader:
         t.join()
         if err:
             raise err[0]
+
+
+# ---------------------------------------------------------------------------
+# dataset generation
+# ---------------------------------------------------------------------------
+
+CHUNK_SIZE = 256  # entries an HDF5 group (``chunk_{k}``) holds
+
+
+def oracle_follower_factory(env):
+    """:func:`oracle_goal_follower` with the env's own turn angle and
+    success distance: a ``follower_factory``, and so a ``module:callable``
+    spec for the generation CLI's ``--follower``."""
+    return oracle_goal_follower(env.cfg.turn_angle_deg, env.cfg.success_distance)
+
+
+def iter_rollout_entries(n_entries: int, env_factory=None, follower_factory=None,
+                         env_cfg=None, rnd_p: float = 1.0, seed: int = 0,
+                         valid_actions: Optional[Sequence[int]] = None,
+                         obs_transform: Optional[Callable] = None
+                         ) -> Iterator[Dict[str, np.ndarray]]:
+    """The rollout behind :func:`generate_dataset`: ``n_entries`` entries of
+    the reference schema (22 arrays each, rgb uint8 and depth float16
+    flattened), in the order the file stores them.
+
+    ``env_factory(env_cfg, seed)`` makes the env (the scripted one where
+    None); ``follower_factory(env)`` makes ``f(env, obs) -> action``
+    (:func:`oracle_goal_follower` where None), whose STOP resets the env
+    unrecorded.  A step pair is kept where its action is in
+    ``valid_actions`` (all where None) and then, drawn only after that
+    test passes, with probability ``rnd_p`` from ``default_rng(seed)``: the
+    JAX package's draw order, so a seed gives its entries bit for bit.
+    ``obs_transform(image_hwc) -> image_hwc`` (:func:`generate_datasets.
+    make_obs_transform`) runs once on each observation a kept pair holds;
+    its output is cast with ``astype``, which truncates rgb."""
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, ScriptedPointNavEnv
+
+    env_cfg = env_cfg or EnvConfig()
+    rng = np.random.default_rng(seed)
+    env = (env_factory or ScriptedPointNavEnv)(env_cfg, seed=seed)
+    follower = (follower_factory(env) if follower_factory is not None
+                else oracle_goal_follower(env_cfg.turn_angle_deg, env_cfg.success_distance))
+    tf = obs_transform if obs_transform is not None else (lambda x: x)
+
+    def frames(obs):
+        return (tf(obs["rgb"]).astype(np.uint8).reshape(-1),
+                tf(obs["depth"]).astype(np.float16).reshape(-1))
+
+    written = 0
+    obs, obs_frames, new_episode = env.reset(), None, True
+    while written < n_entries:
+        action = int(follower(env, obs))
+        if action == STOP:
+            obs, obs_frames, new_episode = env.reset(), None, True
+            continue
+        prev_gpos, prev_grot = env.global_pose()
+        nobs, _r, done, info = env.step(action)
+        cur_gpos, cur_grot = env.global_pose()
+        keep = ((valid_actions is None or action in valid_actions)
+                and rng.uniform() < rnd_p)
+        nobs_frames = None
+        if keep:
+            obs_frames = obs_frames if obs_frames is not None else frames(obs)
+            nobs_frames = frames(nobs)
+            inv = quat_inverse(prev_grot)  # the delta of cur relative to prev
+            d_pos = quat_rotate(inv, cur_gpos - prev_gpos)
+            d_rot = quat_canonical(quat_multiply(inv, cur_grot))
+            prev_yaw = 2.0 * np.arctan2(prev_grot[1], prev_grot[3])
+            cur_yaw = 2.0 * np.arctan2(cur_grot[1], cur_grot[3])
+            yield {
+                "new_episodes": np.uint8(new_episode),
+                "actions": np.uint8(action),
+                "collisions": np.uint8(info["collisions"]["count"] > 0),
+                "episode_start_positions": np.zeros(3, np.float32),
+                "episode_start_rotations": np.zeros(4, np.float32),
+                "episode_goal_positions": env.goal_position(),
+                "prev_rgbs": obs_frames[0],
+                "cur_rgbs": nobs_frames[0],
+                "prev_depths": obs_frames[1],
+                "cur_depths": nobs_frames[1],
+                "prev_point_goal_vecs": obs["pointgoal_with_gps_compass"],
+                "cur_point_goal_vecs": nobs["pointgoal_with_gps_compass"],
+                "prev_episodic_gpses": np.zeros(2, np.float32),
+                "cur_episodic_gpses": np.zeros(2, np.float32),
+                "prev_episodic_compasses": np.asarray([prev_yaw], np.float32),
+                "cur_episodic_compasses": np.asarray([cur_yaw], np.float32),
+                "prev_global_positions": prev_gpos.astype(np.float32),
+                "cur_global_positions": cur_gpos.astype(np.float32),
+                "prev_global_rotations": prev_grot.astype(np.float32),
+                "cur_global_rotations": cur_grot.astype(np.float32),
+                "delta_positions": d_pos.astype(np.float32),
+                "delta_rotations": np.asarray(d_rot, np.float32),
+            }
+            written += 1
+        new_episode = False
+        obs, obs_frames = nobs, nobs_frames
+        if done:
+            obs, obs_frames, new_episode = env.reset(), None, True
+
+
+def generate_dataset(path: str, n_entries: int, env_factory=None, follower_factory=None,
+                     env_cfg=None, rnd_p: float = 1.0, seed: int = 0,
+                     valid_actions: Optional[Sequence[int]] = None,
+                     obs_transform: Optional[Callable] = None) -> int:
+    """Write :func:`iter_rollout_entries` to ``path`` in the reference's
+    chunked HDF5 schema (``chunk_{k}`` groups of :data:`CHUNK_SIZE`
+    entries, LZF on the ``*rgbs`` and ``*depths`` datasets); returns the
+    number of entries written."""
+    import h5py
+
+    written = chunks = 0
+    with h5py.File(path, "w") as f:
+        buf: List[Dict[str, np.ndarray]] = []
+
+        def flush():
+            nonlocal chunks
+            grp = f.create_group(f"chunk_{chunks}")
+            for k in buf[0]:
+                grp.create_dataset(k, data=np.stack([b[k] for b in buf]),
+                                   compression="lzf" if k.endswith(("rgbs", "depths")) else None)
+            chunks += 1
+            buf.clear()
+
+        for entry in iter_rollout_entries(n_entries, env_factory, follower_factory, env_cfg,
+                                          rnd_p, seed, valid_actions, obs_transform):
+            buf.append(entry)
+            written += 1
+            if len(buf) == CHUNK_SIZE:
+                flush()
+        if buf:
+            flush()
+    return written
+
+
+def generate_scripted_dataset(path: str, n_entries: int, env_cfg=None, rnd_p: float = 1.0,
+                              seed: int = 0) -> int:
+    """:func:`generate_dataset` over the scripted env and the oracle follower."""
+    return generate_dataset(path, n_entries, env_cfg=env_cfg, rnd_p=rnd_p, seed=seed)
+
+
+def fork_workers(run: Callable[[int], None], n_workers: int) -> None:
+    """``run(i)`` for each ``i < n_workers`` in a forked process of its own,
+    one intra-op thread each, as a DataLoader's workers; raises where a
+    worker fails.
+
+    The workers are forked, so ``run`` may be a closure.  A process that
+    has initialised CUDA cannot fork workers that use the card, so this
+    raises where it has, and each worker initialises the card itself."""
+    import multiprocessing as mp
+
+    import torch
+
+    if torch.cuda.is_initialized():
+        raise RuntimeError("the dataset writers are forked, and this process has "
+                           "initialised CUDA: a forked child cannot use the card. Run "
+                           "the generation before any CUDA work, or with one worker")
+
+    def child(i):
+        torch.set_num_threads(1)
+        run(i)
+
+    ctx = mp.get_context("fork")
+    procs = [ctx.Process(target=child, args=(i,)) for i in range(n_workers)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join()
+    bad = [i for i, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise RuntimeError(f"dataset workers failed: {bad} (exit codes "
+                           f"{[procs[i].exitcode for i in bad]})")
+
+
+def generate_dataset_parallel(path_prefix: str, n_entries: int, n_workers: int,
+                              env_factory=None, follower_factory=None, env_cfg=None,
+                              rnd_p: float = 1.0, seed: int = 0,
+                              valid_actions: Optional[Sequence[int]] = None,
+                              obs_transform: Optional[Callable] = None,
+                              factory_kwargs: Optional[List[Dict[str, Any]]] = None
+                              ) -> List[str]:
+    """:func:`generate_dataset` over ``n_workers`` forked processes
+    (:func:`fork_workers`), worker ``i`` seeded ``seed + 1000 i`` writing
+    ``{path_prefix}.w{i}.h5`` with ``n_entries // n_workers`` entries (the
+    last one the remainder too); the files read as one dataset.
+    ``factory_kwargs`` is one dict of extra ``env_factory`` keywords a
+    worker (its scenes, the task config)."""
+    per = [n_entries // n_workers] * n_workers
+    per[-1] += n_entries - sum(per)
+    paths = [f"{path_prefix}.w{i}.h5" for i in range(n_workers)]
+
+    def run(i):
+        ef = env_factory
+        if ef is not None and factory_kwargs is not None:
+            kw = factory_kwargs[i]
+            ef = lambda cfg, seed: env_factory(cfg, seed=seed, **kw)  # noqa: E731
+        generate_dataset(paths[i], per[i], env_factory=ef, follower_factory=follower_factory,
+                         env_cfg=env_cfg, rnd_p=rnd_p, seed=seed + 1000 * i,
+                         valid_actions=valid_actions, obs_transform=obs_transform)
+
+    fork_workers(run, n_workers)
+    return paths

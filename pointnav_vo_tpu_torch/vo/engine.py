@@ -26,6 +26,16 @@ plain ``VOCNN``.  Each train step, on the device:
 An expert with no rows in a batch still takes its Adam step (its momentum
 moves it), as in JAX: the gradients are zeroed, never set to None.
 
+Diagnostics: ``log_grad`` adds ``grad/global_norm`` and one
+``grad/{top}_norm`` for each top-level module (the JAX parameter tree's top
+names, every expert together) to each step's metrics, taken after the
+group's all-reduce; :meth:`VORegressionEngine.grad_snapshot` is the
+per-parameter gradient of one fixed batch, for histograms.  ``debug``
+raises ``FloatingPointError`` on a non-finite loss, metric or gradient
+before the update, and runs the backward under
+``torch.autograd.detect_anomaly`` (in one process: in a group the check
+after the all-reduce makes every rank raise together), scoped to the step.
+
 Data-parallel over a ``parallel.dist.Group`` (the JAX engine's mesh):
 ``batch_size`` stays the batch of a host, whose ranks each train on their
 contiguous block of it (a twin-packed batch whose entries do not split
@@ -37,10 +47,12 @@ stays unsharded.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import pickle
 import time
+import warnings
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -93,6 +105,8 @@ class VOTrainConfig:
     loss_inv_weight: float = 1.0
     log_interval: int = 10
     seed: int = 0
+    debug: int = 0  # VO.debug: the NaN check
+    log_grad: bool = False  # VO.TRAIN.log_grad: gradient norms and histograms
 
     def __post_init__(self):
         actions = self.expert_actions
@@ -290,6 +304,41 @@ def vo_loss(preds: torch.Tensor, arrs: Mapping[str, torch.Tensor],
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
+def grad_norms(experts: Sequence[torch.nn.Module]) -> Dict[str, torch.Tensor]:
+    """``grad/global_norm`` and ``grad/{top}_norm`` of the experts'
+    ``.grad``: each top-level module's norm over every expert together, as
+    the JAX engine's stacked tree gives it.  The port's top-level module
+    names are the JAX tree's (``visual_encoder``, ``visual_fc``,
+    ``output_head``, and the act-embed model's ``action_embedding`` and
+    ``hidden_generator``)."""
+    sq: Dict[str, List[torch.Tensor]] = {}
+    for m in experts:
+        for name, p in m.named_parameters():
+            sq.setdefault(name.split(".", 1)[0], []).append(p.grad.pow(2).sum())
+    tops = {top: torch.stack(v).sum() for top, v in sq.items()}
+    out = {f"grad/{top}_norm": v.sqrt() for top, v in tops.items()}
+    out["grad/global_norm"] = torch.stack(list(tops.values())).sum().sqrt()
+    return out
+
+
+def _raise_if_nonfinite(what: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """``FloatingPointError`` naming the non-finite entries (one host read)."""
+    flat = torch.cat([v.detach().reshape(-1).float() for v in tensors.values()])
+    if not bool(torch.isfinite(flat).all()):
+        bad = sorted(k for k, v in tensors.items() if not bool(torch.isfinite(v).all()))
+        raise FloatingPointError(f"VO.debug: non-finite {what} in the train step: {bad}")
+
+
+@contextlib.contextmanager
+def _anomaly_mode():
+    """``torch.autograd.detect_anomaly`` for one backward, without its
+    warning that the mode is on."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="Anomaly Detection has been enabled")
+        with torch.autograd.detect_anomaly():
+            yield
+
+
 class VORegressionEngine:
     """Train/eval engine.  ``device=None`` means the card.  Pass ``experts``
     (modules) or ``state_dicts`` (one per trained action, in
@@ -346,6 +395,7 @@ class VORegressionEngine:
         self.generator = torch.Generator(device=self.device).manual_seed(
             rank_seed(tcfg.seed, group))
         self.epoch = 0
+        self._snap_batch: Optional[FramePairBatch] = None
 
     def _to_device(self, batch: FramePairBatch, pad_to: Optional[int] = None):
         arrs = batch_to_device(batch, self.device)
@@ -358,21 +408,54 @@ class VORegressionEngine:
     def train_step(self, batch: FramePairBatch) -> Dict[str, torch.Tensor]:
         """One update on a host batch (the whole host's batch in a group:
         the rank trains on its block); the metrics stay on the device.  The
-        step's gradients stay in the parameters' ``.grad`` until the next."""
+        step's gradients stay in the parameters' ``.grad`` until the next.
+        Under ``debug`` a raise leaves the whitening statistics as they
+        were, as the JAX engine's functional step leaves its variables."""
         if self.group is not None:
             batch = shard_frame_pairs(batch, self.group.local_rank, self.group.local_world)
         arrs = self._to_device(batch)
         self.opt.zero_grad(set_to_none=False)
+        if not self.tcfg.debug:
+            metrics = self._gradients(arrs)
+        else:
+            buffers = [b for m in self.experts for b in m.buffers()]
+            saved = [b.clone() for b in buffers]
+            try:
+                metrics = self._gradients(arrs)
+            except (FloatingPointError, RuntimeError):
+                with torch.no_grad():
+                    for b, v in zip(buffers, saved):
+                        b.copy_(v)
+                raise
+        self.opt.step()
+        return metrics
+
+    def _gradients(self, arrs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step up to the update: forward (the whitening statistics
+        merge the batch), loss, backward and the group's all-reduce, with
+        the diagnostics; returns the metrics."""
         obs = obs_pairs_from_batch(arrs, self.icfg)
         gen = self.generator if self.icfg.dropout_p > 0 else None
         preds = forward_experts(self.experts, obs, arrs, True, gen)
         total, metrics = vo_loss(preds, arrs, self.tcfg)
-        total.backward()
+        debug = bool(self.tcfg.debug)
+        if debug and self.group is None:
+            # before the backward, as jax_debug_nans stops at the forward's NaN
+            _raise_if_nonfinite("loss or metrics", metrics)
+            with _anomaly_mode():
+                total.backward()
+        else:
+            total.backward()
         if self.group is not None:
             params = [p for m in self.experts for p in m.parameters()]
             self.group.all_reduce_([p.grad for p in params], "mean")
             self.group.all_reduce_(list(metrics.values()), "mean")
-        self.opt.step()
+        if self.tcfg.log_grad or debug:
+            norms = grad_norms(self.experts)
+            if debug:  # after the all-reduce: every rank of a group raises together
+                _raise_if_nonfinite("loss, metrics or gradients", {**metrics, **norms})
+            if self.tcfg.log_grad:
+                metrics.update(norms)
         return metrics
 
     def train_epoch(self) -> Dict[str, float]:
@@ -501,14 +584,57 @@ class VORegressionEngine:
         self.epoch = state["epoch"]
         return state
 
+    def _snapshot_batch(self) -> FramePairBatch:
+        """One fixed train batch, the first of an epoch shuffled by
+        ``default_rng(0)``: drawn once, held on the host, and shared by
+        :meth:`grad_snapshot` and :meth:`obs_snapshot`."""
+        if self._snap_batch is None:
+            if self.train_reader is None:
+                raise ValueError("the snapshots need a train_reader")
+            with contextlib.closing(self.train_reader.iter_batches(
+                    self.tcfg.batch_size, rng=np.random.default_rng(0), drop_last=True)) as it:
+                self._snap_batch = next(it)
+        return self._snap_batch
+
+    def grad_snapshot(self) -> Dict[str, np.ndarray]:
+        """The loss's gradient on the snapshot batch, with no update: one
+        array a parameter name, stacked over the experts (the JAX engine's
+        leading expert axis), for the gradient histograms.  The forward
+        normalises as the train step does, with the batch merged into the
+        whitening statistics, which are restored after; dropout draws from
+        a generator seeded ``tcfg.seed``.  The parameters, ``.grad``, the
+        optimizer, the statistics and the engine's generator stay as they
+        are; in a group the statistics are not summed over the ranks (rank
+        0 alone calls it)."""
+        arrs = self._to_device(self._snapshot_batch())
+        params = [p for m in self.experts for p in m.parameters()]
+        buffers = [b for m in self.experts for b in m.buffers()]
+        saved = [b.clone() for b in buffers]
+        gen = (torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+               if self.icfg.dropout_p > 0 else None)
+        for m in self.experts:
+            set_stats_group(m, None)
+        try:
+            preds = forward_experts(self.experts, obs_pairs_from_batch(arrs, self.icfg), arrs,
+                                    True, gen)
+            total, _ = vo_loss(preds, arrs, self.tcfg)
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+        finally:
+            with torch.no_grad():
+                for b, v in zip(buffers, saved):
+                    b.copy_(v)
+            for m in self.experts:
+                set_stats_group(m, self.group)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        names = [n for n, _ in self.experts[0].named_parameters()]
+        return {name: torch.stack(grads[i::len(names)]).cpu().numpy()
+                for i, name in enumerate(names)}
+
     def obs_snapshot(self) -> Dict[str, np.ndarray]:
         """The first train sample's pair channels (rgb ``[H, W, 6]`` in
-        0-255, depth and top_down_view ``[H, W, 2]``, ...) of one fixed
-        train batch, for the per-epoch TensorBoard image dumps."""
-        if self.train_reader is None:
-            raise ValueError("obs_snapshot needs a train_reader")
-        batch = next(iter(self.train_reader.iter_batches(
-            self.tcfg.batch_size, rng=np.random.default_rng(0), drop_last=True)))
+        0-255, depth and top_down_view ``[H, W, 2]``, ...) of the snapshot
+        batch, for the per-epoch TensorBoard image dumps."""
+        batch = self._snapshot_batch()
         frames = [torch.from_numpy(np.ascontiguousarray(getattr(batch, k)[:1])).to(self.device)
                   for k in ("prev_rgb", "prev_depth", "cur_rgb", "cur_depth")]
         return {k: v[0].float().cpu().numpy() for k, v in

@@ -15,6 +15,7 @@ import pickle
 import random
 import re
 import signal
+import struct
 import sys
 import threading
 import time
@@ -57,6 +58,7 @@ from pointnav_vo_tpu_torch.io.checkpoint import (
 )
 from pointnav_vo_tpu_torch.io.weights import (
     POLICY_PREFIX,
+    _vo_param_path,
     load_policy_checkpoint,
     load_vo_checkpoint,
     policy_state_dict_from_jax,
@@ -481,14 +483,6 @@ def test_rl_preemption_saves_interrupted_state_and_returns(rl_train_run, tmp_pat
                 port=True).update_idx == 1
 
 
-# ---------------------------------------------------------------- unported
-
-
-def _raises_not_ported(fn):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1 item"):
-        fn()
-
-
 # ---------------------------------------------------------------- the eval's options
 
 
@@ -583,18 +577,6 @@ def test_rl_train_update_over_shm_equals_sync(weights, tmp_path):
     assert states["shm"].keys() == states["sync"].keys()
     for k, v in states["sync"].items():
         assert torch.equal(states["shm"][k], v), k
-
-
-_VO_UNPORTED = {
-    "log_grad": ["VO.TRAIN.log_grad", "True"],
-    "decode_workers": ["VO.TRAIN.decode_workers", "2"],
-}
-
-
-@pytest.mark.parametrize("name", sorted(_VO_UNPORTED))
-def test_unported_vo_option_raises(name, tmp_path):
-    _raises_not_ported(lambda: _cli(trun.main, tmp_path, "vo", "train",
-                                    _VO_UNPORTED[name], port=True))
 
 
 # ---------------------------------------------------------------- VO CLI
@@ -705,6 +687,79 @@ def test_port_vo_checkpoint_loads_as_an_expert(vo_runs):
         load_vo_checkpoint(ckpt, 2)
     model = VOInferenceConfig(vis_size_w=S, vis_size_h=S, hidden_size=HIDDEN).make_model()
     model.load_state_dict(load_vo_checkpoint(ckpt, 1), strict=True)
+
+
+# ---------------------------------------------------------------- VO diagnostics
+
+
+def _tb_histograms(run_dir):
+    """``{tag: [(step, HistogramProto), ...]}`` of a run's TensorBoard event
+    files, read with tensorboardX's protobufs (TFRecord framing: length,
+    its checksum, the event, its checksum; the checksums are skipped)."""
+    from tensorboardX.proto import event_pb2
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(run_dir, "tb", "events.out.tfevents.*"))):
+        with open(path, "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            (n,) = struct.unpack("<Q", data[pos:pos + 8])
+            event = event_pb2.Event.FromString(data[pos + 12:pos + 12 + n])
+            pos += 12 + n + 4
+            for v in event.summary.value:
+                if v.HasField("histo"):
+                    out.setdefault(v.tag, []).append((event.step, v.histo))
+    return out
+
+
+@pytest.fixture(scope="module")
+def vo_diag_runs(weights, vo_data, tmp_path_factory):
+    """The forward stage from the same ``.pth`` expert with 2 decode
+    workers and the gradient diagnostics, both CLIs."""
+    root = tmp_path_factory.mktemp("vo_diag")
+    runs = _vo_train_eval(root, vo_data, [
+        "VO.MODEL.pretrained_ckpt", f"{{forward: {weights['paths']['forward']}}}",
+        "VO.TRAIN.action_type", "1", "VO.TRAIN.decode_workers", "2",
+        "VO.TRAIN.log_grad", "True"])
+    for name, run in runs.items():
+        run["tb"] = _tb_histograms(_last_run(root / name, "vo-train"))
+    return runs
+
+
+_GRAD_NORMS = {"grad/global_norm", "grad/visual_encoder_norm", "grad/visual_fc_norm",
+               "grad/output_head_norm"}
+
+
+def test_vo_cli_decode_workers_and_log_grad_match_jax(vo_diag_runs):
+    """The epoch's stream from the two decode workers, the last logged
+    gradient norms, and eval, within the VO CLI's tolerance."""
+    got, want = vo_diag_runs["port"]["train"], vo_diag_runs["jax"]["train"]
+    assert {k for k in want if k.startswith("grad/")} == _GRAD_NORMS
+    assert {k for k in got if k.startswith("grad/")} == _GRAD_NORMS
+    assert got["epoch"] == want["epoch"] == 1
+    for k in sorted(_GRAD_NORMS) + ["mean_total_loss", "eval_abs_diff_dx", "eval_abs_diff_dz",
+                                    "eval_abs_diff_dyaw"]:
+        np.testing.assert_allclose(got[k], want[k], rtol=VO_RTOL, err_msg=k)
+        assert got[k] > 0, k
+
+
+def test_vo_cli_log_grad_writes_a_histogram_a_parameter(vo_diag_runs):
+    """One ``grad/{name}`` histogram a parameter in the epoch, each of
+    JAX's parameter's values: the same count and L2 norm (rtol 1e-3, the
+    gradient tolerance of the VO training tests)."""
+    got, want = vo_diag_runs["port"]["tb"], vo_diag_runs["jax"]["tb"]
+    sd = load_checkpoint(vo_diag_runs["port"]["ckpt"])["experts"][0]
+    names = [k for k in sd if ".running_mean_and_var." not in k]
+    assert sorted(got) == sorted(f"grad/{n}" for n in names)
+    assert len(want) == len(got)
+    for n in names:
+        (step, h), = got[f"grad/{n}"]
+        (jstep, jh), = want["grad/" + "/".join(_vo_param_path(n)[0])]
+        assert step == jstep == 1 and h.num == jh.num == sd[n].numel(), n
+        np.testing.assert_allclose(np.sqrt(h.sum_squares), np.sqrt(jh.sum_squares), rtol=1e-3,
+                                   atol=1e-9, err_msg=n)
+        assert h.sum_squares > 0, n
 
 
 # ---------------------------------------------------------------- the zoo
