@@ -161,7 +161,10 @@ Phases, each printing a line; any failure exits non-zero:
    their minibatch orders (global env indices): each minibatch's mean
    gradients within relative L2 1e-3, the parameters within 2 lr a step
    (within 1e-6 where every step's gradient exceeds 1e-2 of its tensor's
-   max), the loss terms rtol 1e-4; (c) the VO joint stage at a global batch
+   max), the loss terms rtol 1e-4; the ranks run with deterministic cuDNN,
+   and the one-rank replay runs twice more with it (bit-equal) and twice
+   with cuDNN's default algorithms (the gradient tensors that change are
+   printed); (c) the VO joint stage at a global batch
    of 128 (64 a rank) for 8 steps on in-memory turn pairs: 2 launches a
    step a rank, parameters, Adam moments and whitening bit-equal across
    ranks, frame-pairs/s of the whole, and one step (dropout off) against
@@ -188,7 +191,34 @@ Phases, each printing a line; any failure exits non-zero:
    the CPU tests' bounds of the CPU transform of the same observation;
    (d) 500 oracle steps' deltas with VO-sized noise dead-reckoned through
    ``propagate_goal`` in float32 on the card and on the CPU and in numpy
-   float64: the final goal error of each, card against CPU within 1e-4 m.
+   float64: the final goal error of each, card against CPU within 1e-4 m;
+16. the paper's pipelines (``pointnav_vo_tpu_torch/examples/``): (a) the
+   ResNet18 + 2-layer LSTM-512 policy with ``compute_dtype=torch.bfloat16``
+   at full width (TF32 off) beside the same weights in fp32: at the
+   ladder's training shape (16 envs, 64 steps, 2 epochs of 2 minibatches,
+   the VO in the loop) the rollout step's and the update's ms in each
+   precision (CUDA events); over 2 envs and 8 steps, one act step and the
+   ``ppo_loss`` gradient over a stored rollout, card bf16 against CPU bf16
+   and against card fp32 (logits, value and hidden within phase 3's
+   relative L2 of 5e-2, actions equal where the fp32 logit margin exceeds
+   0.05; all the gradients within relative L2 6.5e-2 of the CPU's bf16,
+   from the card's fp32 at most 1.5x the CPU's own bf16-to-fp32 distance
+   and farther from it than the card's fp32 is from the CPU's), and one
+   whole update leaving the parameters and Adam moments float32; the whole
+   phase runs with deterministic cuDNN; (b) the
+   994-episode ladder (``eval_994_ladder.py``) at a smoke size over the shm
+   farm: every row with exactly its episode count of distinct episodes and
+   exactly steps + 1 launches (none for ``oracle_gps``), the tune stage's
+   updates x steps + 1, then a run stopped in the tune stage and relaunched
+   from its ``.part`` (the GPS stage skipped) ending on the uninterrupted
+   run's parameters bit for bit, under deterministic cuDNN; (c)
+   ``rl_tune_with_vo`` at 64x64, ``end_to_end_scripted``,
+   ``train_rl_scripted``, ``train_vo_scripted`` and ``vis_trajectory`` (2
+   episodes through a 3-expert checkpoint the phase writes) at smoke sizes:
+   records and PNGs written, metrics finite.  Every run of (a)-(c) launches
+   ``bin_counts`` exactly as often as its work needs (2 a VO train or eval
+   step or two-frame call, loop steps + 1 an eval with VO, rollout steps +
+   1 a trainer with VO).
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -276,6 +306,25 @@ FORK_ENTRIES = 64  # phase 15 (c): entries a forked writer rolls
 DR_STEPS = 500  # phase 15 (d): oracle steps dead-reckoned
 DR_NOISE = (0.01, 0.01, 0.0035)  # phase 15 (d): VO-sized error std of (dx m, dz m, dyaw rad)
 DR_TOL_M = 1e-4  # phase 15 (d): final goal, card vs CPU float32 (the CPU test's bound)
+PIPE_RL_STEPS = 8  # phase 16 (a): rollout steps of the trainer whose rollout is compared
+# phase 16 (a): the card's bf16 policy gradients against the CPU's, relative L2
+# (read 4.59e-2; an fp32 path would read about 8.8e-2, the CPU's bf16-to-fp32)
+PIPE_BF16_GRAD_REL = 6.5e-2
+# phase 16 (a): the ladder's training shape (eval_994_ladder.py's defaults)
+LADDER_TRAIN_ENVS, LADDER_STEPS = 16, 64
+# phase 16 (b): the ladder at a smoke size (every row, the farm, the .part)
+LADDER_ARGS = ["--episodes", "16", "--rnd-episodes", "8", "--envs", "8", "--pairs", "256",
+               "--eval-pairs", "64", "--epochs", "1", "--gps-updates", "2",
+               "--tune-updates", "2", "--train-envs", "4", "--num-steps", "16",
+               "--max-episode-steps", "30"]
+# phase 16 (c): the other drivers at smoke sizes
+PIPE_TUNE_ARGS = ["--pairs", "256", "--epochs", "1", "--size", "64", "--gps-updates", "1",
+                  "--tune-updates", "1", "--episodes", "4", "--envs", "4"]
+PIPE_E2E_ARGS = ["--pairs", "256", "--eval-pairs", "64", "--epochs", "1", "--size", "96",
+                 "--episodes", "8", "--envs", "4"]
+PIPE_RL_ARGS = ["--updates", "2", "--envs", "4", "--size", "64", "--steps", "16"]
+PIPE_VO_ARGS = ["--pairs", "256", "--eval-pairs", "64", "--epochs", "1", "--size", "96"]
+VIS_SIZE = 96  # phase 16 (c): vis_trajectory's square frames and its checkpoint's experts
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -2886,21 +2935,27 @@ def _dist_rl(group, root):
         n_loc = first["rollouts"].num_envs
         union = torch.cat([o + r * n_loc for r, o in enumerate(orders)], dim=-1).to(dev)
         set_stats_group(trainer.model, None)
-        one = copy.deepcopy(trainer.model)
-        one.load_state_dict(first["state"])
-        opt = ppo.make_optimizer(one.parameters(), first["cfg"], first["total_updates"])
-        opt.load_state_dict(first["opt"])
-        grads, real_step = [], opt.step
+        rollouts = _concat_storage(parts)
 
-        def step():
-            grads.append([p.grad.clone() if p.grad is not None else torch.zeros_like(p)
-                          for p in opt.params])
-            real_step()
+        def replay():
+            one = copy.deepcopy(trainer.model)
+            one.load_state_dict(first["state"])
+            opt = ppo.make_optimizer(one.parameters(), first["cfg"], first["total_updates"])
+            opt.load_state_dict(first["opt"])
+            grads, real_step = [], opt.step
 
-        opt.step = step
-        stats = ppo.ppo_update(one, first["cfg"], opt, _concat_storage(parts), order=union,
-                               clip_param=first["clip"])
-        ok, worst, strong_worst = _params_gate(first["params"], opt.params, first["grads"],
+            def step():
+                grads.append([p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+                              for p in opt.params])
+                real_step()
+
+            opt.step = step
+            stats = ppo.ppo_update(one, first["cfg"], opt, rollouts, order=union,
+                                   clip_param=first["clip"])
+            return grads, [p.detach().clone() for p in opt.params], stats
+
+        grads, params, stats = replay()
+        ok, worst, strong_worst = _params_gate(first["params"], params, first["grads"],
                                                first["cfg"].lr, len(grads))
         out["vs_one_rank"] = {
             "grad_rel_l2": max(_rel_l2(_flat(g), _flat(w)) for g, w in zip(first["grads"], grads)),
@@ -2908,7 +2963,26 @@ def _dist_rl(group, root):
             "param_max_abs": worst, "param_max_abs_strong": strong_worst, "params_ok": ok,
             "stats": first["stats"], "stats_one_rank": {k: float(v) for k, v in stats.items()},
             "minibatches": len(grads)}
+        # the replay again, with the deterministic cuDNN the run used and with
+        # cuDNN's default algorithms: the gradient tensors that change
+        grads2, params2, _ = replay()
+        out["replay_bit_equal"] = (_tensors_differ(grads, grads2) == [0] * len(grads)
+                                   and torch.equal(_flat(params), _flat(params2)))
+        torch.backends.cudnn.deterministic = False
+        try:
+            runs = [replay()[0] for _ in range(2)]
+        finally:
+            torch.backends.cudnn.deterministic = True
+        out["replay_nondeterministic_cudnn_grads_differ"] = _tensors_differ(*runs)
     return out
+
+
+def _tensors_differ(a, b):
+    """For each minibatch, the number of gradient tensors not bit-equal
+    between two replays."""
+    import torch
+
+    return [sum(not torch.equal(x, y) for x, y in zip(ga, gb)) for ga, gb in zip(a, b)]
 
 
 def _dist_vo(group):
@@ -3014,6 +3088,10 @@ def _dist_rank(group, root):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # (b) holds the ranks' update against a replay on one rank: cuDNN's
+    # default conv algorithms sum the gradients in an order that changes
+    # from run to run, which Adam's sign-like first steps amplify
+    torch.backends.cudnn.deterministic = True
     t0 = time.perf_counter()
     rec = {"rank": group.rank, "backend": group.backend, "device": str(group.device),
            "rl": _dist_rl(group, root)}
@@ -3076,6 +3154,13 @@ def phase_dist(dev, card, eval_ref):
                    for k, v in b["stats_one_rank"].items())
     if not (b["params_ok"] and b["grad_rel_l2"] <= 1e-3 and stats_ok):
         raise AssertionError(f"dist rl vs one rank: {json.dumps(b)}")
+    if not r0["rl"]["replay_bit_equal"]:
+        raise AssertionError("dist rl: two replays of the first update on one rank with "
+                             "deterministic cuDNN differ")
+    _log("dist", "(b) the one-rank replay twice with torch.backends.cudnn.deterministic "
+                 "(the ranks' setting): gradients and parameters bit-equal; twice with cuDNN's "
+                 "default algorithms, gradient tensors that differ per minibatch: "
+                 f"{r0['rl']['replay_nondeterministic_cudnn_grads_differ']}")
     _log("dist", "(b) the first update on one rank (both ranks' rollouts, their minibatch "
                  "orders as global env indices) vs the ranks': each minibatch's mean "
                  "gradients within relative L2 1e-3, parameters within 2 lr a step (within 1e-6 "
@@ -3513,6 +3598,460 @@ def phase_diag(dev, card):
     return rec
 
 
+# -- phase 16: the bf16 policy and the paper's pipelines ---------------------------
+
+
+class _LaunchLedger:
+    """What ``bin_counts`` must launch over a driver's run, from the work
+    it did: 2 a VO train or eval step (both frames), 2 a two-frame VO call
+    (the unfused ``compute_local_delta_states_from_vo``), loop steps + 1 an
+    ``Evaluator.run`` with VO, rollout steps + 1 a trainer with VO.  Counts
+    ``Evaluator.run``, ``DDPPOTrainer.collect_rollout`` and the VO engine's
+    steps while it is entered."""
+
+    def __enter__(self):
+        from pointnav_vo_tpu_torch.examples.eval_994 import CountedSteps
+        from pointnav_vo_tpu_torch.rl.eval import Evaluator
+        from pointnav_vo_tpu_torch.rl.trainer import DDPPOTrainer
+        from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine
+        from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble
+
+        self.vo_steps = self.pair_calls = 0
+        self.evals, self.rollout_steps = [], {}
+        ledger = self
+        self._saved = [(Evaluator, "run", Evaluator.run),
+                       (DDPPOTrainer, "collect_rollout", DDPPOTrainer.collect_rollout),
+                       (VORegressionEngine, "train_step", VORegressionEngine.train_step),
+                       (VORegressionEngine, "eval_step", VORegressionEngine.eval_step),
+                       (VOEnsemble, "compute_local_delta_states_from_vo",
+                        VOEnsemble.compute_local_delta_states_from_vo)]
+        run, collect, train_step, eval_step, pair = (f for _c, _n, f in self._saved)
+
+        def counted_run(ev, *a, **kw):
+            counted = ev.envs = CountedSteps(ev.envs)
+            try:
+                return run(ev, *a, **kw)
+            finally:
+                ev.envs = counted.envs
+                ledger.evals.append((counted.calls, ev.vo is not None))
+
+        def counted_collect(tr):
+            if tr.vo is not None:
+                ledger.rollout_steps[id(tr)] = (ledger.rollout_steps.get(id(tr), 0)
+                                                + tr.cfg.num_steps)
+            return collect(tr)
+
+        def step(fn):
+            def counted(*a, **kw):
+                ledger.vo_steps += 1
+                return fn(*a, **kw)
+            return counted
+
+        def counted_pair(*a, **kw):
+            ledger.pair_calls += 1
+            return pair(*a, **kw)
+
+        for (cls, name, _f), f in zip(self._saved, (counted_run, counted_collect,
+                                                   step(train_step), step(eval_step),
+                                                   counted_pair)):
+            setattr(cls, name, f)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, f in self._saved:
+            setattr(cls, name, f)
+
+    def expected(self):
+        return (2 * self.vo_steps + 2 * self.pair_calls
+                + sum(calls + 1 for calls, vo in self.evals if vo)
+                + sum(n + 1 for n in self.rollout_steps.values()))
+
+
+def _driver_run(name, fn, card):
+    """One driver's run with its launches counted and checked against
+    :class:`_LaunchLedger`; returns (its output, its launch count, wall s)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _LaunchLedger() as ledger:
+        out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.launch_counts["bin_counts"]
+    if launches != ledger.expected():
+        raise AssertionError(f"{name}: bin_counts launched {launches} times; its work "
+                             f"needs {ledger.expected()} ({ledger.vo_steps} VO steps, "
+                             f"{ledger.pair_calls} two-frame calls, evals {ledger.evals}, "
+                             f"rollout steps {list(ledger.rollout_steps.values())})")
+    _log("pipelines", f"{name}: wall {wall:.2f} s, bin_counts launches {launches} (exact: "
+                      f"{ledger.vo_steps} VO steps, {ledger.pair_calls} two-frame calls, "
+                      f"{len(ledger.evals)} evals, {len(ledger.rollout_steps)} VO rollouts) "
+                      f"on {card}")
+    return out, launches, wall
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def _ladder_shape_ms(dev, card):
+    """(a) The rollout step's and the update's ms in bf16 and fp32 at the
+    ladder's training shape: its tune stage's trainer (LADDER_TRAIN_ENVS
+    envs, LADDER_STEPS steps, 2 epochs of 2 minibatches, bf16 det VO in the
+    loop), the same seeded weights in each precision.  A first rollout and
+    update warm, a second is timed (CUDA events, host work included)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples import eval_994_ladder as ladder
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.rl.trainer import DDPPOTrainer
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble
+
+    env_cfg = EnvConfig(image_h=H, image_w=W, actuation_noise_multiplier=0.5)
+    pcfg, train_cfg = ladder.training_configs(LADDER_STEPS, env_cfg)
+    icfg = ladder.make_icfg(env_cfg)
+    g = torch.Generator().manual_seed(SEED + 62)
+    vo = VOEnsemble(icfg, experts=[seeded_init_(icfg.make_model(), g) for _ in range(3)],
+                    device=dev)
+    times = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        tr = DDPPOTrainer(model=PointNavActorCritic(image_size=(H, W), compute_dtype=dtype),
+                          ppo_cfg=pcfg, device=dev, vo_ensemble=vo,
+                          envs=make_scripted_vector_env(train_cfg, LADDER_TRAIN_ENVS, seed=100),
+                          init_generator=torch.Generator().manual_seed(SEED + 63),
+                          generator=torch.Generator(device=dev).manual_seed(1))
+        try:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            for k in range(2):
+                ev[3 * k].record()
+                tr.collect_rollout()
+                ev[3 * k + 1].record()
+                tr.update_agent()
+                ev[3 * k + 2].record()
+            torch.cuda.synchronize()
+        finally:
+            tr.envs.close()
+        times[name] = {"rollout_step_ms": ev[3].elapsed_time(ev[4]) / LADDER_STEPS,
+                       "update_ms": ev[4].elapsed_time(ev[5]),
+                       "warm_rollout_step_ms": ev[0].elapsed_time(ev[1]) / LADDER_STEPS,
+                       "warm_update_ms": ev[1].elapsed_time(ev[2])}
+        del tr
+    _log("pipelines", f"(a) the ladder's training shape ({LADDER_TRAIN_ENVS} envs x "
+                      f"{LADDER_STEPS} steps, ppo_epoch {pcfg.ppo_epoch}, num_mini_batch "
+                      f"{pcfg.num_mini_batch}, bf16 det VO in the loop): rollout step and update "
+                      f"ms, the second of two (CUDA events, host work included) "
+                      f"{json.dumps(times)} on {card}")
+    return times
+
+
+def _pipelines_bf16(dev, card):
+    """(a) The bf16 policy at full width: the times of
+    :func:`_ladder_shape_ms`; one act step and one PPO update over a small
+    rollout, card bf16 against CPU bf16 and card fp32, and float32 state
+    after the update."""
+    import torch
+
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.rl.ppo import make_optimizer, ppo_loss, ppo_update
+
+    times = _ladder_shape_ms(dev, card)
+    tr = _rl_trainer(dev, PIPE_RL_STEPS, SEED + 60,
+                     policy=PointNavActorCritic(image_size=(H, W), compute_dtype=torch.bfloat16))
+    for _ in range(2):  # the compared rollout starts from a carried hidden state
+        tr.collect_rollout()
+        tr.update_agent()
+
+    # one act step and one update from the bf16 trainer's stored rollout
+    tr.collect_rollout()
+    rollouts = _with_returns(tr)
+    base = copy.deepcopy(tr.model).cpu()
+    models = {"card_bf16": copy.deepcopy(base).to(dev), "cpu_bf16": copy.deepcopy(base),
+              "card_fp32": copy.deepcopy(base).to(dev), "cpu_fp32": copy.deepcopy(base)}
+    models["card_fp32"].compute_dtype = models["cpu_fp32"].compute_dtype = None
+    cpu = torch.device("cpu")
+    devs = {"card_bf16": dev, "cpu_bf16": cpu, "card_fp32": dev, "cpu_fp32": cpu}
+    step, grads, losses = {}, {}, {}
+    for name, model in models.items():
+        d = devs[name]
+        obs = {k: v[0].to(d) for k, v in rollouts.observations.items()}
+        with torch.no_grad():
+            logits, value, hidden = model.eval()(obs, rollouts.hidden_states[0].to(d),
+                                                 rollouts.prev_actions[0].to(d),
+                                                 rollouts.masks[0].to(d))
+        step[name] = [x.float().cpu() for x in (logits, value, hidden)]
+        model.train().zero_grad(set_to_none=True)
+        r = rollouts.to(d)
+        total, terms = ppo_loss(model, tr.cfg, _full_minibatch(r, model), tr.cfg.clip_param)
+        total.backward()
+        losses[name] = float(total.detach())
+        grads[name] = torch.cat([p.grad.detach().float().cpu().reshape(-1)
+                                 for p in model.parameters()])
+    top2 = torch.topk(step["card_fp32"][0], 2, dim=-1).values
+    firm = (top2[:, 0] - top2[:, 1]) > LOGIT_MARGIN
+    act = {k: v[0].argmax(-1) for k, v in step.items()}
+    # bf16's own gradient distance from fp32 (the CPU's, beside the card's)
+    own = _rel(grads["cpu_bf16"], grads["cpu_fp32"])
+    out = {"times": times, "cpu_bf16_vs_cpu_fp32_gradients": own,
+           "card_fp32_vs_cpu_fp32_gradients": _rel(grads["card_fp32"], grads["cpu_fp32"])}
+    for ref in ("cpu_bf16", "card_fp32"):
+        dist = {what: _rel(step["card_bf16"][i], step[ref][i])
+                for i, what in enumerate(("logits", "value", "hidden"))}
+        dist["gradients"] = _rel(grads["card_bf16"], grads[ref])
+        dist["loss"] = [losses["card_bf16"], losses[ref]]
+        differ = act["card_bf16"] != act[ref]
+        dist["actions_differ"] = int(differ.sum())
+        dist["rows_within_margin"] = int((~firm).sum())
+        out[f"vs_{ref}"] = dist
+    _log("pipelines", "(a) distances: " + json.dumps(out))
+    for ref, dist in ((r, out[f"vs_{r}"]) for r in ("cpu_bf16", "card_fp32")):
+        # the gradients: card vs CPU bf16 within PIPE_BF16_GRAD_REL, and from
+        # fp32 at most BF16_SIDE_RATIO x the CPU's own distance
+        grad_bound = PIPE_BF16_GRAD_REL if ref == "cpu_bf16" else BF16_SIDE_RATIO * own
+        if (max(dist[k] for k in ("logits", "value", "hidden")) > BF16_DELTA_REL
+                or dist["gradients"] > grad_bound):
+            raise AssertionError(f"(a) card bf16 vs {ref}: {json.dumps(dist)}")
+        if bool(((act["card_bf16"] != act[ref]) & firm).any()):
+            raise AssertionError(f"(a) card bf16 vs {ref}: actions differ where the fp32 "
+                                 f"logit margin exceeds {LOGIT_MARGIN}")
+    # a card path that computed in fp32 would stand as close to the card's
+    # fp32 gradients as those stand to the CPU's
+    if out["vs_card_fp32"]["gradients"] <= out["card_fp32_vs_cpu_fp32_gradients"]:
+        raise AssertionError("(a) the card's bf16 gradients are no farther from its fp32 "
+                             "ones than those are from the CPU's: the bf16 path ran in fp32")
+    if step["card_bf16"][2].dtype != torch.float32 or tr.hidden.dtype != torch.float32:
+        raise AssertionError("(a) the bf16 policy's hidden state is not float32")
+
+    # one whole update (2 minibatches) of the card's bf16 policy: float32 state after it
+    model = copy.deepcopy(base).to(dev)
+    opt = make_optimizer(model.parameters(), tr.cfg)
+    stats = {k: float(v) for k, v in ppo_update(
+        model, tr.cfg, opt, rollouts, generator=torch.Generator(device=dev).manual_seed(SEED)
+    ).items()}
+    moments = [t for s in opt.adam.state.values() for t in (s["exp_avg"], s["exp_avg_sq"])]
+    if not (all(p.dtype == torch.float32 for p in model.parameters())
+            and all(t.dtype == torch.float32 for t in moments) and moments
+            and all(np.isfinite(v) for v in stats.values())):
+        raise AssertionError(f"(a) bf16 update: {stats}, parameter or moment dtypes "
+                             f"{sorted({str(p.dtype) for p in model.parameters()})}")
+    out["update_stats"] = stats
+    _log("pipelines", f"(a) bf16 policy, one act step (rollout step 0) and the ppo_loss "
+                      f"gradient over {PIPE_RL_STEPS} x {RL_ENVS} frames, card bf16 against CPU "
+                      f"bf16 and card fp32: logits, value, hidden within relative L2 "
+                      f"{BF16_DELTA_REL}, gradients within {PIPE_BF16_GRAD_REL} of the CPU's "
+                      f"bf16, within {BF16_SIDE_RATIO} x the CPU's own bf16-to-fp32 distance "
+                      f"({own:.4g}) of the card's fp32 and farther from it than the card's fp32 "
+                      f"from the CPU's, actions equal where the fp32 logit "
+                      f"margin > {LOGIT_MARGIN}; one update "
+                      f"{json.dumps(stats)}, parameters and Adam moments float32")
+    return out
+
+
+def _pipelines_ladder(dev, card, root):
+    """(b) The ladder at a smoke size over the farm (its rows check their
+    episode counts and launches), then a relaunch from the ``.part`` a run
+    stopped after the GPS stage leaves: the uninterrupted run's parameters,
+    bit for bit (deterministic cuDNN)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples import eval_994_ladder as ladder
+    from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig
+
+    cache = lambda name: os.path.join(root, name)  # noqa: E731
+    argv = LADDER_ARGS + ["--vo-cache", cache("vo.pt"), "--policy-cache", cache("pol.pt"),
+                          "--out", cache("ladder.json"), "--watchdog", "0"]
+    launches = {}
+    real_vo, real_policy = ladder.train_vo, ladder.train_policy
+
+    def counted(name, fn):
+        def run(*a, **kw):
+            out, launches[name], _wall = _driver_run(f"(b) ladder {name}", lambda: fn(*a, **kw),
+                                                     card)
+            return out
+        return run
+
+    ladder.train_vo, ladder.train_policy = counted("vo_train", real_vo), counted(
+        "policy_train", real_policy)
+    try:
+        t0 = time.perf_counter()
+        rec = ladder.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        ladder.train_vo, ladder.train_policy = real_vo, real_policy
+    args = ladder.build_parser().parse_args(argv)
+    rows = rec["rows"]
+    want_eps = {"policy_vo": args.episodes, "oracle_gps": args.episodes,
+                "greedy_vo": args.episodes, "policy_vo_rnd": args.rnd_episodes}
+    for name, n in want_eps.items():
+        row = rows[name]
+        want = 0 if name == "oracle_gps" else row["loop_steps"] + 1
+        if (row["distinct_episodes"] != n or row["metrics"]["episodes"] != n
+                or row["bin_counts_launches"] != want
+                or not all(np.isfinite(v) for v in row["metrics"].values())):
+            raise AssertionError(f"(b) ladder row {name}: {json.dumps(row)}")
+        launches[name] = row["bin_counts_launches"]
+    if launches["policy_train"] != args.tune_updates * args.num_steps + 1:
+        raise AssertionError(f"(b) ladder policy training: {launches['policy_train']} launches")
+    _log("pipelines", f"(b) ladder {' '.join(LADDER_ARGS)}: wall {wall:.2f} s; rows "
+                      + json.dumps({k: {"episodes": v["distinct_episodes"],
+                                        "loop_steps": v["loop_steps"],
+                                        "launches": v["bin_counts_launches"],
+                                        "wall_min": v["wall_clock_min"],
+                                        "success": v["metrics"]["success"]}
+                                    for k, v in rows.items()})
+                      + f"; train_cost_s {json.dumps(rec['train_cost_s'])} on {card}")
+
+    # the relaunch: a run stopped in the tune stage, then resumed from its .part
+    env_cfg = EnvConfig(max_episode_steps=args.max_episode_steps,
+                        actuation_noise_multiplier=0.5)
+    vo_states, _t = ladder.train_vo(args, env_cfg, dev)  # from the cache
+    ensemble = ladder.make_ensemble(ladder.make_icfg(env_cfg), vo_states, dev)
+    rerun = ladder.build_parser().parse_args(LADDER_ARGS + ["--policy-cache",
+                                                            cache("pol_cut.pt")])
+
+    class Stop(Exception):
+        pass
+
+    real_stage, stages = ladder.train_stage, []
+
+    def stop_in_tune(stage, *a, **kw):
+        if stage == "tune_vo":
+            raise Stop
+        return real_stage(stage, *a, **kw)
+
+    def logged(stage, *a, **kw):
+        stages.append((stage, a[2]))  # (stage, start update)
+        return real_stage(stage, *a, **kw)
+
+    try:
+        ladder.train_stage = stop_in_tune
+        try:
+            ladder.train_policy(rerun, env_cfg, ensemble, dev)
+        except Stop:
+            pass
+        part = load_checkpoint(cache("pol_cut.pt.part"))
+        ladder.train_stage = logged
+        tk.reset_launch_counts()
+        state, _t, _trend = ladder.train_policy(rerun, env_cfg, ensemble, dev)
+        torch.cuda.synchronize()
+        resume_launches = tk.launch_counts["bin_counts"]
+    finally:
+        ladder.train_stage = real_stage
+    whole = load_checkpoint(cache("pol.pt"))["state_dict"]
+    equal = sorted(whole) == sorted(state) and all(torch.equal(whole[k], state[k])
+                                                   for k in whole)
+    if (part["stage"], part["update"]) != ("gps_done", 0) or stages != [("tune_vo", 0)] \
+            or not equal or resume_launches != args.tune_updates * args.num_steps + 1:
+        raise AssertionError(f"(b) ladder relaunch: part ({part['stage']}, {part['update']}), "
+                             f"stages {stages}, parameters equal {equal}, launches "
+                             f"{resume_launches}")
+    launches["relaunch_tune"] = resume_launches
+    _log("pipelines", "(b) relaunch from the .part written after the GPS stage (stage "
+                      "gps_done, update 0): the tune stage alone from update 0, "
+                      f"{resume_launches} launches, parameters bit-equal to the uninterrupted "
+                      "run's")
+    return {"wall_s": wall, "rows": rows, "train_cost_s": rec["train_cost_s"],
+            "launches": launches}
+
+
+def _pipelines_drivers(dev, card, root):
+    """(c) The other drivers at smoke sizes, each run's launches exact:
+    their records (and vis_trajectory's PNGs) exist and hold finite
+    metrics."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples import (
+        end_to_end_scripted,
+        rl_tune_with_vo,
+        train_rl_scripted,
+        train_vo_scripted,
+        vis_trajectory,
+    )
+    from pointnav_vo_tpu_torch.io.checkpoint import save_checkpoint
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.vo.ensemble import VOInferenceConfig
+
+    out, launches, walls = {}, {}, {}
+
+    def finite(tree):
+        if isinstance(tree, dict):
+            return all(finite(v) for v in tree.values())
+        if isinstance(tree, list):
+            return all(finite(v) for v in tree)
+        return not isinstance(tree, float) or np.isfinite(tree)
+
+    def run(name, fn, path, check):
+        _rec, launches[name], walls[name] = _driver_run(f"(c) {name}", fn, card)
+        with open(path) as f:
+            rec = json.load(f)
+        if not check(rec):
+            raise AssertionError(f"(c) {name}: record {json.dumps(rec)[:2000]}")
+        out[name] = rec
+        return rec
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    run("rl_tune_with_vo", lambda: rl_tune_with_vo.main(PIPE_TUNE_ARGS + ["--out", p("tune.json")]),
+        p("tune.json"), lambda r: all(np.isfinite(r[k][m]) for k in ("gps_oracle", "no_tune",
+                                                                      "tune_vo")
+                                     for m in ("success", "spl", "softspl", "distance_to_goal")))
+    run("end_to_end_scripted", lambda: end_to_end_scripted.main(
+        PIPE_E2E_ARGS + ["--out", p("e2e.json")]), p("e2e.json"),
+        lambda r: finite(r["metrics"]) and r["metrics"]["episodes"] > 0)
+    run("train_rl_scripted", lambda: train_rl_scripted.main(
+        PIPE_RL_ARGS + ["--out", p("rl.json")]), p("rl.json"),
+        lambda r: np.isfinite(r["final_mean_ep_reward"]) and finite(r["reward_trend"]))
+    run("train_vo_scripted", lambda: train_vo_scripted.main(
+        PIPE_VO_ARGS + ["--out", p("vo")]), p("vo/train_vo_scripted.json"),
+        lambda r: finite(r["final"]) and finite(r["epochs_history"]))
+    # vis_trajectory from a checkpoint this phase writes: three seeded experts
+    icfg = VOInferenceConfig(vis_size_w=VIS_SIZE, vis_size_h=VIS_SIZE)
+    g = torch.Generator().manual_seed(SEED + 61)
+    save_checkpoint(p("vis_vo.pt"), {
+        "experts": [seeded_init_(icfg.make_model(), g).state_dict() for _ in range(3)],
+        "inference_config": dataclasses.asdict(icfg)})
+    rec = run("vis_trajectory", lambda: vis_trajectory.main(
+        ["--episodes", "0", "1", "--size", str(VIS_SIZE), "--out", p("vis"), "--vo-ckpt",
+         p("vis_vo.pt")]), p("vis/trajectories.json"),
+        lambda r: all(os.path.isfile(e["image"]) and np.isfinite(e["drift_m"])
+                      for e in r["episodes"].values()) and len(r["episodes"]) == 2)
+    images = sorted(os.path.basename(e["image"]) for e in rec["episodes"].values())
+    _log("pipelines", f"(c) records written and finite; vis_trajectory images {images}; "
+                      f"launches {json.dumps(launches)}; wall s {json.dumps(walls)}")
+    out = {name: {k: v for k, v in rec.items() if k in (
+        "gps_oracle", "no_tune", "tune_vo", "metrics", "final", "final_mean_ep_reward")}
+        for name, rec in out.items()}
+    return {"records": out, "launches": launches, "wall_s": walls, "vis_images": images}
+
+
+def phase_pipelines(dev, card):
+    """Phase 16: the bf16 policy, the ladder, the other drivers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipelines_")
+    deterministic = torch.backends.cudnn.deterministic
+    # the same numbers every run; (b)'s relaunch is held bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        bf16, launches, _wall = _driver_run("(a) bf16 policy",
+                                            lambda: _pipelines_bf16(dev, card), card)
+        return {"bf16_policy": {**bf16, "launches": launches},
+                "ladder": _pipelines_ladder(dev, card, root),
+                "drivers": _pipelines_drivers(dev, card, root)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3550,6 +4089,7 @@ def main() -> int:
     pol = timed("policies", phase_policies, dev, card)
     dist_rec = timed("dist", phase_dist, dev, card, episodes)
     diag = timed("diag", phase_diag, dev, card)
+    pipes = timed("pipelines", phase_pipelines, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -3579,7 +4119,10 @@ def main() -> int:
                "dist_train_vo": dist_rec["launches"]["train_vo"],
                "dist_eval": dist_rec["launches"]["eval"],
                "diag_train_off": diag["launches"]["train_off"],
-               "diag_train_on": diag["launches"]["train_on"]}
+               "diag_train_on": diag["launches"]["train_on"],
+               "pipelines_bf16_policy": pipes["bf16_policy"]["launches"],
+               **{f"ladder_{k}": v for k, v in pipes["ladder"]["launches"].items()},
+               **pipes["drivers"]["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -3612,6 +4155,7 @@ def main() -> int:
         "policies": pol,
         "dist": dist_rec,
         "diag": diag,
+        "pipelines": pipes,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

@@ -6,7 +6,7 @@
     python -m pointnav_vo_tpu_torch.examples.eval_994 --backend sync --out sync.json
 
 Phase 1 trains the three VO experts at full width (341x192) on scripted
-frame pairs held in memory (``vo.dataset.MemoryFramePairs``; no HDF5): the
+frame pairs held in memory (:func:`scripted_pairs`; no HDF5): the
 oracle goal follower's pairs under actuation noise 0.5, the forward stage
 on its forward pairs, then the joint turn stage (inverse loss over twins)
 on its turns, ``--epochs`` epochs each at batch 128, in ``--precision``.
@@ -45,7 +45,7 @@ from pointnav_vo_tpu_torch.ops import topdown_kernels
 from pointnav_vo_tpu_torch.native.shm_env import ShmVectorEnv
 from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
 from pointnav_vo_tpu_torch.rl.eval import Evaluator, episode_budgets
-from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs, oracle_goal_follower
+from pointnav_vo_tpu_torch.vo.dataset import MemoryFramePairs, iter_rollout_entries
 from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
 from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
 
@@ -81,16 +81,25 @@ class GreedyGoalPolicy(nn.Module):
         return logits, goal.new_zeros((goal.shape[0], 1)), hidden
 
 
+def scripted_pairs(n: int, env_cfg: EnvConfig, seed: int) -> MemoryFramePairs:
+    """The oracle follower's ``n`` frame pairs of the scripted world, held in
+    memory: the entries the JAX package's ``generate_scripted_dataset(path,
+    n, env_cfg, seed=seed)`` writes, as its reader reads them (the card's
+    machine has no ``h5py``)."""
+    return MemoryFramePairs.from_rollout(iter_rollout_entries(n, env_cfg=env_cfg, seed=seed),
+                                         env_cfg.image_h, env_cfg.image_w)
+
+
 def train_experts(icfg: VOInferenceConfig, env_cfg: EnvConfig, pairs: int, eval_pairs: int,
                   epochs: int, batch: int, device, log=print) -> Tuple[list, Dict]:
     """The forward expert and the joint left/right experts, trained on the
-    oracle follower's pairs; returns ([forward, left, right], record)."""
+    oracle follower's pairs (seed 0; the eval pairs' seed 99999, none where
+    ``eval_pairs`` is 0); returns ([forward, left, right], record)."""
     t0 = time.perf_counter()
-    follower = oracle_goal_follower(env_cfg.turn_angle_deg, env_cfg.success_distance)
-    train = MemoryFramePairs.scripted(pairs, follower, seed=0, env_cfg=env_cfg)
-    evalset = MemoryFramePairs.scripted(eval_pairs, follower, seed=99_999, env_cfg=env_cfg)
+    train = scripted_pairs(pairs, env_cfg, seed=0)
+    evalset = scripted_pairs(eval_pairs, env_cfg, seed=99_999) if eval_pairs else None
     t_data = time.perf_counter() - t0
-    log(f"{len(train)} + {len(evalset)} frame pairs at {env_cfg.image_w}x{env_cfg.image_h} "
+    log(f"{len(train)} + {eval_pairs} frame pairs at {env_cfg.image_w}x{env_cfg.image_h} "
         f"in {t_data:.1f} s")
 
     train_icfg = dataclasses.replace(icfg, cache_dtype="native")  # training packs no cache
@@ -105,16 +114,19 @@ def train_experts(icfg: VOInferenceConfig, env_cfg: EnvConfig, pairs: int, eval_
     t0 = time.perf_counter()
     experts, record = [], {"dataset_gen_s": t_data, "pairs": pairs, "epochs": epochs}
     for name, (tcfg, actions, twins) in stages.items():
-        engine = VORegressionEngine(train_icfg, tcfg, train.subset(actions, twins),
-                                    evalset.subset(actions, twins), device=device)
+        engine = VORegressionEngine(
+            train_icfg, tcfg, train.subset(actions, twins),
+            evalset.subset(actions, twins) if evalset else None, device=device)
         losses = [engine.train_epoch()["mean_total_loss"] for _ in range(epochs)]
-        final = engine.evaluate()
-        log(f"[{name}] {engine.train_reader.num_samples()} train samples, epoch losses "
-            + " ".join(f"{x:.5f}" for x in losses) + f"; eval abs (dx, dz, dyaw) = "
-            f"({final['abs_diff_dx']:.4f}, {final['abs_diff_dz']:.4f}, "
-            f"{final['abs_diff_dyaw']:.4f})")
         record[f"{name}_epoch_losses"] = losses
-        record[f"{name}_eval"] = {k: float(v) for k, v in final.items()}
+        msg = (f"[{name}] {engine.train_reader.num_samples()} train samples, epoch losses "
+               + " ".join(f"{x:.5f}" for x in losses))
+        if evalset:
+            final = engine.evaluate()
+            record[f"{name}_eval"] = {k: float(v) for k, v in final.items()}
+            msg += (f"; eval abs (dx, dz, dyaw) = ({final['abs_diff_dx']:.4f}, "
+                    f"{final['abs_diff_dz']:.4f}, {final['abs_diff_dyaw']:.4f})")
+        log(msg)
         experts.extend(engine.experts)
     record["train_s"] = time.perf_counter() - t0
     return experts, record
@@ -207,7 +219,7 @@ def run_protocol(ensemble: VOEnsemble, env_cfg: EnvConfig, episodes: int, n_envs
     return out
 
 
-def _card_line():
+def card_line():
     try:
         return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -267,7 +279,7 @@ def main(argv=None) -> Dict:
         "precision": args.precision,
         "cache_dtype": args.cache_dtype,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "card": _card_line() if dev.type == "cuda" else None,
+        "card": card_line() if dev.type == "cuda" else None,
         "torch": torch.__version__,
         "eval_wall_clock_min": run["wall_s"] / 60,
         "vs_reference_min": REFERENCE_EVAL_MIN,

@@ -27,7 +27,7 @@ and the top-down projection run on the device in the train step.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -317,10 +317,11 @@ class MemoryFramePairs:
     """Frame pairs held in memory, with the reader interface the training
     engine takes (``iter_batches``, ``num_samples``).  An entry is (prev
     rgb uint8, prev depth float16, cur rgb, cur depth, action, global
-    poses), as the HDF5 schema stores them.  With ``twins`` each entry also
-    yields its swapped twin right after it (the opposite turn, its target
-    from the global poses), and a batch of whole twins ships each entry's
-    frames once."""
+    poses, target), as the HDF5 schema stores them; the target is the
+    delta of cur relative to prev.  With ``twins`` each entry also yields
+    its swapped twin right after it (the opposite turn, its target from
+    the global poses), and a batch of whole twins ships each entry's frames
+    once."""
 
     def __init__(self, entries: List[Tuple], twins: bool = False):
         self.entries = entries
@@ -348,9 +349,31 @@ class MemoryFramePairs:
             pos1, rot1 = env.global_pose()
             entries.append((obs["rgb"].astype(np.uint8), obs["depth"].astype(np.float16),
                             new["rgb"].astype(np.uint8), new["depth"].astype(np.float16),
-                            a, (pos0, rot0, pos1, rot1)))
+                            a, (pos0, rot0, pos1, rot1),
+                            inverse_delta_from_global(rot1, pos1, rot0, pos0)))
             obs = env.reset() if done else new
         return cls(entries, twins)
+
+    @classmethod
+    def from_rollout(cls, entries: Iterable[Dict[str, np.ndarray]], h: int, w: int,
+                     twins: bool = False) -> "MemoryFramePairs":
+        """The entries of :func:`iter_rollout_entries` (the rows of the
+        HDF5 file :func:`generate_dataset` writes) as ``h x w`` frame pairs
+        that train exactly as :class:`FramePairReader` reads the file: the
+        target from the stored delta position and rotation, the twin's
+        from the stored global poses."""
+        out = []
+        for e in entries:
+            dp, dr = e["delta_positions"], e["delta_rotations"]
+            dyaw = 2.0 * np.arctan2(dr[1], dr[3])
+            poses = tuple(e[k].astype(np.float64) for k in (
+                "prev_global_positions", "prev_global_rotations", "cur_global_positions",
+                "cur_global_rotations"))
+            out.append((e["prev_rgbs"].reshape(h, w, 3), _depth_native(e["prev_depths"], h, w)[0],
+                        e["cur_rgbs"].reshape(h, w, 3), _depth_native(e["cur_depths"], h, w)[0],
+                        int(e["actions"]), poses,
+                        np.asarray([dp[0], dp[2], dyaw], np.float32)))
+        return cls(out, twins)
 
     def subset(self, actions: Sequence[int], twins: bool = False) -> "MemoryFramePairs":
         """The entries of the given actions (sharing their frames), as the
@@ -365,9 +388,9 @@ class MemoryFramePairs:
 
     def _samples(self, order):
         for e in order:
-            _pr, _pd, _cr, _cd, a, (pos0, rot0, pos1, rot1) = self.entries[e]
+            _pr, _pd, _cr, _cd, a, (pos0, rot0, pos1, rot1), target = self.entries[e]
             # cur relative to prev; the twin: prev relative to cur
-            yield e, False, a, inverse_delta_from_global(rot1, pos1, rot0, pos0)
+            yield e, False, a, target
             if self.twins:
                 flipped = TURN_RIGHT if a == TURN_LEFT else TURN_LEFT
                 yield e, True, flipped, inverse_delta_from_global(rot0, pos0, rot1, pos1)
