@@ -182,7 +182,15 @@ Phases, each printing a line; any failure exits non-zero:
    the card and on the CPU: each ``grad/*`` norm within rtol 1e-3, the
    snapshot's tensors within phase 6's relative L2 of 5e-2, and each
    top-level module's (and backbone stage's) relative L2 from the float64
-   step printed for both sides; (b) ``debug``: a batch with one NaN
+   step printed for both sides; then the card's float32 gradient fault run
+   down (``_grad_fault_by_op``, TF32 off): the B=8 step's stem, layer1 and
+   layer2 gradients from float64 on the same device, on the card under
+   cuDNN's default algorithms, ``deterministic``, ``benchmark`` and
+   cuDNN off, and on the CPU; each op of those stages (conv, GroupNorm,
+   ReLU, max-pool, residual add) alone, forward and backward, float32
+   against float64 on the same rounded inputs and upstream gradient, under
+   each setting and on the CPU; and the B=128 joint step's ms under each
+   setting; (b) ``debug``: a batch with one NaN
    ``gt_delta`` raises, and the parameters, whitening statistics and Adam
    moments stay ``torch.equal`` to before; (c) 256 entries of the
    generator's rollout (``iter_rollout_entries``, no ``h5py``) from
@@ -218,7 +226,25 @@ Phases, each printing a line; any failure exits non-zero:
    records and PNGs written, metrics finite.  Every run of (a)-(c) launches
    ``bin_counts`` exactly as often as its work needs (2 a VO train or eval
    step or two-frame call, loop steps + 1 an eval with VO, rollout steps +
-   1 a trainer with VO).
+   1 a trainer with VO);
+17. the measurement scripts and the checkpoint tools: (a)
+   ``examples/full_eval_benchmark.py`` at 32 envs (bf16, every weight
+   0.01), FEB_STEPS loop steps and the chained step, its lines printed,
+   ``bin_counts`` launched exactly 1 + steps + 8 x chained calls; and one
+   loop step with seeded bf16 weights on the card and on the CPU: deltas
+   and logits within phase 3's relative L2 of 5e-2, the policy's actions
+   equal where the fp32 top-two logit gap exceeds 0.05, env actions equal,
+   goals within rtol 1e-5; (b) ``examples/profile_vo_step.py`` at B=512
+   (bf16, 8 iterations): each stage's ms (CUDA events) and device ms
+   (torch.profiler), every output finite, the kernel's top-down view
+   ``torch.equal`` to the plain version's, launches exact; (c)
+   ``tools/export_to_reference.py``: a forward-stage and a joint-stage VO
+   checkpoint and an RL checkpoint written on the card, exported, read
+   back by ``VOEnsemble.from_torch_checkpoints`` and
+   ``load_policy_checkpoint``, forwards bit-equal to the originals'; (d)
+   ``tools/verify_reference_ckpts.py`` on those files with ``--device
+   cuda`` and on the CPU: both PASS, ``delta_sample0``/``logits_sample0``
+   within rtol 1e-3 / atol 1e-4.
 
 Each phase's wall time is printed after it (``[time]``).
 
@@ -296,6 +322,9 @@ DIST_VO_EPOCHS = 4  # phase 14 (c): 8 steps
 DIAG_ENTRIES = 256  # phase 15 (a): turn entries, 4 twin-packed batches of 64 (128 samples)
 DIAG_STEPS = 8  # phase 15 (a): steps with the diagnostics on, and with them off
 DIAG_NORM_RTOL = 1e-3  # phase 15 (a): each grad/* norm, card against CPU
+# phase 15 (a): the cuDNN settings the float32 gradient fault is run down under
+CUDNN_SETTINGS = (("default", {}), ("deterministic", {"deterministic": True}),
+                  ("benchmark", {"benchmark": True}), ("cudnn_off", {"enabled": False}))
 GEN_ENTRIES = 256  # phase 15 (c): entries of the generator's rollout
 GEN_SENSOR = (360, 640)  # phase 15 (c): the renders (h, w), resize_crop to W x H
 GEN_RGB_OFF_BY_ONE = 1e-5  # phase 15 (c): the CPU tests' resize_crop bounds: rgb 1 off
@@ -325,6 +354,8 @@ PIPE_E2E_ARGS = ["--pairs", "256", "--eval-pairs", "64", "--epochs", "1", "--siz
 PIPE_RL_ARGS = ["--updates", "2", "--envs", "4", "--size", "64", "--steps", "16"]
 PIPE_VO_ARGS = ["--pairs", "256", "--eval-pairs", "64", "--epochs", "1", "--size", "96"]
 VIS_SIZE = 96  # phase 16 (c): vis_trajectory's square frames and its checkpoint's experts
+FEB_STEPS = 30  # phase 17 (a): full_eval_benchmark's loop steps (the script's default: 200)
+PROFILE_ITERS = 8  # phase 17 (b): profile_vo_step's BENCH_ITERS
 FARM_VIDEOS, FARM_RANK_TOP_K = 2, 5  # phase 11 (d)
 RL_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "configs", "rl", "ddppo_pointnav.yaml")
@@ -3291,6 +3322,204 @@ def _diag_parity(dev, icfg, tcfg, batch, reader, experts):
             "snapshot_worst_rel_l2": max(snap_err.values()), "fp64_rel_l2": fp64}
 
 
+def _high_res_ops(backbone, x, rec):
+    """The stem, its max-pool, layer1 and layer2 of a basic-block GN ResNet
+    op by op, each op applied through ``rec(kind, name, module, *inputs)``;
+    returns layer2's output."""
+    x = rec("conv", "stem.conv", backbone.conv1[0], x)
+    x = rec("gn", "stem.gn", backbone.conv1[1], x)
+    x = rec("relu", "stem.relu", None, x)
+    x = rec("maxpool", "stem.maxpool", backbone.maxpool, x)
+    for stage in ("layer1", "layer2"):
+        for i, blk in enumerate(getattr(backbone, stage)):
+            p = f"{stage}.{i}"
+            y = rec("conv", f"{p}.conv1", blk.convs[0], x)
+            y = rec("gn", f"{p}.gn1", blk.convs[1], y)
+            y = rec("relu", f"{p}.relu1", None, y)
+            y = rec("conv", f"{p}.conv2", blk.convs[3], y)
+            y = rec("gn", f"{p}.gn2", blk.convs[4], y)
+            r = x
+            if blk.downsample is not None:
+                r = rec("conv", f"{p}.down_conv", blk.downsample[0], x)
+                r = rec("gn", f"{p}.down_gn", blk.downsample[1], r)
+            x = rec("relu", f"{p}.relu2", None, rec("add", f"{p}.add", None, y, r))
+    return x
+
+
+def _apply_op(kind, m, inputs, params):
+    import torch.nn.functional as F
+
+    if kind == "conv":
+        return F.conv2d(inputs[0], params[0], None, m.stride, m.padding, m.dilation, m.groups)
+    if kind == "gn":
+        return F.group_norm(inputs[0], m.num_groups, params[0], params[1], m.eps)
+    if kind == "maxpool":
+        return F.max_pool2d(inputs[0], m.kernel_size, m.stride, m.padding)
+    if kind == "relu":
+        return F.relu(inputs[0])
+    return inputs[0] + inputs[1]
+
+
+def _op_params(kind, m):
+    return [] if m is None or kind == "maxpool" else list(m.parameters())
+
+
+def _op_grads(kind, m, inputs, g, device, dtype, flags):
+    """The op alone: its output (``out``) and the gradients of its inputs
+    and parameters given the upstream gradient ``g``, on ``device`` in
+    ``dtype`` under the cuDNN ``flags``."""
+    import torch
+
+    ins = [t.to(device, dtype).requires_grad_() for t in inputs]
+    params = [p.detach().to(device, dtype).requires_grad_() for p in _op_params(kind, m)]
+    with torch.backends.cudnn.flags(**flags):
+        out = _apply_op(kind, m, ins, params)
+        grads = torch.autograd.grad(out, ins + params, g.to(device, dtype))
+    names = [f"d{k}" for k in ("x", "y")[:len(ins)]] + ["dw", "db"][:len(params)]
+    return {"out": out.detach(), **dict(zip(names, grads))}
+
+
+def _grad_fault_by_op(dev, card, icfg, tcfg, batch, reader, experts, step_batches):
+    """The card's float32 VO-gradient fault run down (phase 15 (a)).
+
+    1. End to end: one joint-stage train step at batch ``batch`` (dropout
+       off) in float32 on the card under each of :data:`CUDNN_SETTINGS`, on
+       the CPU, and in float64 on the card and on the CPU; each of the
+       stem's, layer1's and layer2's gradients (all their parameters, both
+       experts) as a relative L2 distance from float64 on the same device.
+    2. By operation: the float64 card step's tape through the stem, the
+       max-pool, layer1 and layer2 of the first expert (each op's inputs
+       and upstream gradient, rounded to float32), then each op's backward
+       alone in float32, on the card under each setting and on the CPU,
+       against the same op in float64 on the same rounded inputs and
+       device: its forward output, the conv's input and weight gradients,
+       GroupNorm's input, weight and bias gradients, ReLU's, the max-pool's
+       and the residual add's.  The op's own rounding is all that differs.
+    3. Cost: the float32 joint step at TRAIN_BATCH under each setting, CUDA
+       events over DIAG_STEPS steps.
+
+    TF32 is off throughout.  Returns the record and the setting that
+    brings all three stages within 1.5x of the CPU's own float32 distance
+    from float64 at under 10 % of the default step's time (None where none
+    does)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.vo.engine import (VORegressionEngine, batch_to_device,
+                                                 obs_pairs_from_batch)
+
+    stages = ("conv1", "layer1", "layer2")
+
+    def stage_grads(engine):
+        out = {s: [] for s in stages}
+        for m in engine.experts:
+            for name, p in m.named_parameters():
+                parts = name.split(".")
+                if parts[:2] == ["visual_encoder", "backbone"] and parts[2] in out:
+                    out[parts[2]].append(p.grad.detach().flatten().cpu().double())
+        return {s: torch.cat(v) for s, v in out.items()}
+
+    def step(device, dtype, flags):
+        engine = VORegressionEngine(icfg, tcfg, reader, device=device,
+                                    experts=[copy.deepcopy(m).to(dtype) for m in experts])
+        with torch.backends.cudnn.flags(**flags):
+            engine.train_step(batch)
+        return stage_grads(engine)
+
+    base = dict(enabled=True, benchmark=False, deterministic=False, allow_tf32=False)
+    g64 = {"card": step(dev, torch.float64, base), "cpu": step(torch.device("cpu"),
+                                                               torch.float64, base)}
+    e2e = {"cpu": {s: _rel_l2(v, g64["cpu"][s])
+                   for s, v in step(torch.device("cpu"), torch.float32, base).items()}}
+    for name, flags in CUDNN_SETTINGS:
+        got = step(dev, torch.float32, {**base, **flags})
+        e2e[name] = {s: {"vs_card64": _rel_l2(v, g64["card"][s]),
+                         "vs_cpu64": _rel_l2(v, g64["cpu"][s])} for s, v in got.items()}
+    e2e["card64_vs_cpu64"] = {s: _rel_l2(g64["card"][s], g64["cpu"][s]) for s in stages}
+
+    # the tape: the first expert's float64 step on the card, op by op
+    model = copy.deepcopy(experts[0]).double().to(dev)
+    tape = []
+
+    def rec(kind, name, m, *inputs):
+        out = _apply_op(kind, m, inputs, _op_params(kind, m))
+        out.retain_grad()
+        tape.append((kind, name, m, [t.detach().float().double() for t in inputs], out))
+        return out
+
+    arrs = batch_to_device(batch, dev)
+    enc = model.visual_encoder
+    with torch.backends.cudnn.flags(**base):
+        x0 = enc.running_mean_and_var(obs_pairs_from_batch(arrs, icfg).permute(0, 3, 1, 2),
+                                      True, dtype=torch.float64)
+        x = _high_res_ops(enc.backbone, x0, rec)
+        feats = enc.compression(enc.backbone.layer4(enc.backbone.layer3(x))).flatten(1)
+        pred = model.trunk(feats)
+        gt = torch.as_tensor(batch.gt_delta, device=dev, dtype=torch.float64)
+        (0.5 * (pred - gt).square().sum(-1).mean()).backward()
+    # per op: {output or gradient: [relative L2 under each of CUDNN_SETTINGS
+    # on the card, then on the CPU]}
+    by_op = {}
+    for kind, name, m, inputs, out in tape:
+        g = out.grad.float().double()
+        row = {}
+        for device, settings in ((dev, CUDNN_SETTINGS), (torch.device("cpu"), (("cpu", {}),))):
+            ref = _op_grads(kind, m, inputs, g, device, torch.float64, base)
+            for _sname, flags in settings:
+                got = _op_grads(kind, m, inputs, g, device, torch.float32, {**base, **flags})
+                for k, v in got.items():
+                    row.setdefault(k, []).append(float(f"{_rel_l2(v, ref[k]):.4g}"))
+        by_op[name] = row
+    del tape
+
+    # the cost: the joint step at TRAIN_BATCH under each setting
+    step_ms = {}
+    tc = dataclasses.replace(tcfg, batch_size=TRAIN_BATCH, log_grad=False)
+    for sname, flags in CUDNN_SETTINGS:
+        eng = VORegressionEngine(icfg, tc, reader, device=dev,
+                                 experts=[copy.deepcopy(m) for m in experts])
+        with torch.backends.cudnn.flags(**{**base, **flags}):
+            eng.train_step(step_batches[-1])  # warm-up (benchmark: the search)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for i in range(DIAG_STEPS):
+                eng.train_step(step_batches[i % len(step_batches)])
+            end.record()
+            torch.cuda.synchronize()
+        step_ms[sname] = start.elapsed_time(end) / DIAG_STEPS
+
+    repaired = next((s for s, _ in CUDNN_SETTINGS
+                     if step_ms[s] < 1.1 * step_ms["default"]
+                     and all(e2e[s][t]["vs_card64"] <= 1.5 * e2e["cpu"][t] for t in stages)),
+                    None)
+    cpu = [float(f"{e2e['cpu'][t]:.3e}") for t in stages]
+    _log("diag", f"float32 VO gradients, B={batch.actions.shape[0]} joint step, relative L2 "
+                 f"from float64 on the same device (stem, layer1, layer2): CPU {cpu}; "
+                 + "; ".join(
+                     f"card {s} " + json.dumps([float(f"{e2e[s][t]['vs_card64']:.3e}")
+                                                for t in stages])
+                     for s, _ in CUDNN_SETTINGS)
+                 + f"; card float64 vs CPU float64 {json.dumps(e2e['card64_vs_cpu64'])}")
+    _log("diag", "each op alone, float32 against float64 on the same rounded inputs, relative "
+                 "L2 of its output and gradients, [card " + ", ".join(
+                     s for s, _ in CUDNN_SETTINGS) + ", CPU]:")
+    for name, row in by_op.items():
+        _log("diag", f"  {name:18s} " + "; ".join(
+            f"{k} " + " ".join(f"{x:.2e}" for x in v) for k, v in row.items()))
+    # the op whose own float32 rounding on the card (default algorithms)
+    # most exceeds the CPU's
+    ratio, worst = max((v[0] / v[-1], f"{name} {k}") for name, row in by_op.items()
+                       for k, v in row.items() if v[-1] > 0)
+    _log("diag", f"the card's default rounding most exceeds the CPU's at {worst}: "
+                 f"{ratio:.2f}x")
+    _log("diag", f"joint step B={TRAIN_BATCH} float32 ms by cuDNN setting (CUDA events, "
+                 f"{DIAG_STEPS} steps): {json.dumps(step_ms)}; the setting that repairs the "
+                 f"three stages within 1.5x of the CPU at under +10 %: {repaired} on {card}")
+    return {"end_to_end": e2e, "by_op": by_op, "worst_op": [worst, ratio], "step_ms": step_ms,
+            "repaired_by": repaired}
+
+
 def _diag_run(engine, batches, on):
     """DIAG_STEPS steps cycling over ``batches``, each timed with CUDA
     events; with ``on`` every step's ``grad/*`` metrics present and finite,
@@ -3484,9 +3713,11 @@ def phase_diag(dev, card):
     parity_cfg = VOTrainConfig(batch_size=PARITY_BATCH, action_type=(TURN_LEFT, TURN_RIGHT),
                                geo_invariance_types=("inverse_joint_train",), lr=1.5e-4,
                                seed=SEED, log_grad=True)
-    rec["vs_cpu"] = _diag_parity(dev, VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0),
-                                 parity_cfg, next(turns.iter_batches(PARITY_BATCH)), turns,
-                                 experts)
+    parity_icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W, dropout_p=0.0)
+    parity_batch = next(turns.iter_batches(PARITY_BATCH))
+    rec["vs_cpu"] = _diag_parity(dev, parity_icfg, parity_cfg, parity_batch, turns, experts)
+    rec["fp32_fault"] = _grad_fault_by_op(dev, card, parity_icfg, parity_cfg, parity_batch,
+                                          turns, experts, batches)
 
     # (b) debug: a NaN target raises before anything changes
     engine = runs["on"][1]
@@ -4052,6 +4283,230 @@ def phase_pipelines(dev, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase 17: the measurement scripts and the checkpoint tools --------------------
+
+
+def _feb_vs_cpu(dev, card):
+    """One ``full_eval_benchmark.eval_loop`` step over N_ENVS envs with
+    seeded bf16 weights on the card and on the CPU: the deltas within
+    BF16_DELTA_REL, the logits within it too, the policy's actions equal
+    where the card's fp32 policy's top-two logit gap exceeds LOGIT_MARGIN,
+    the env actions equal and the goals within rtol 1e-5 / atol 1e-6;
+    exactly 2 launches (the first frame and the step)."""
+    import torch
+
+    from pointnav_vo_tpu_torch.examples import full_eval_benchmark as feb
+    from pointnav_vo_tpu_torch.io.weights import seeded_init_
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+    from pointnav_vo_tpu_torch.rl.envs import EnvConfig, make_scripted_vector_env
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
+
+    env_cfg = EnvConfig(image_h=H, image_w=W)
+    vo_cfg = VOInferenceConfig(precision="bf16", vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(SEED + 50)
+    experts = [seeded_init_(vo_cfg.make_model(), g) for _ in range(3)]
+    policy = seeded_init_(PointNavActorCritic(image_size=(H, W), compute_dtype=torch.bfloat16),
+                          g)
+    traces = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        ens = VOEnsemble(vo_cfg, experts=[copy.deepcopy(m) for m in experts], device=device)
+        envs = make_scripted_vector_env(env_cfg, N_ENVS, seed=0)
+        tk.reset_launch_counts()
+        traces[name] = []
+        feb.eval_loop(envs, env_cfg, ens, copy.deepcopy(policy).to(device), 1, device,
+                      traces[name])
+        if device.type == "cuda" and tk.launch_counts["bin_counts"] != 2:
+            raise AssertionError(f"eval_loop: {tk.launch_counts['bin_counts']} launches over "
+                                 "one step; expected 2")
+    got, want = traces["card"][0], traces["cpu"][0]
+    # the first step's policy inputs, for the fp32 policy's logit margin
+    obs = make_scripted_vector_env(env_cfg, N_ENVS, seed=0).reset()
+    rgb, depth = feb.ship(obs, dev)
+    fp32 = copy.deepcopy(policy).to(dev)
+    fp32.compute_dtype = None
+    with torch.no_grad():
+        logits32 = fp32({"depth": depth, "pointgoal_with_gps_compass":
+                         torch.from_numpy(obs["pointgoal_with_gps_compass"]).to(dev)},
+                        fp32.initial_hidden(N_ENVS, dev),
+                        torch.zeros((N_ENVS, 1), dtype=torch.long, device=dev),
+                        torch.zeros((N_ENVS, 1), device=dev))[0].float().cpu()
+    top2 = logits32.topk(2, dim=-1).values
+    firm = (top2[:, 0] - top2[:, 1]).numpy() > LOGIT_MARGIN
+    out = {"delta_rel_l2": _rel_l2(torch.from_numpy(got["delta"]), torch.from_numpy(want["delta"])),
+           "logits_rel_l2": _rel_l2(torch.from_numpy(got["logits"]),
+                                    torch.from_numpy(want["logits"])),
+           "goal_max_abs": float(np.abs(got["goal_polar"] - want["goal_polar"]).max()),
+           "policy_actions_differ": int((got["policy_action"] != want["policy_action"]).sum()),
+           "rows_within_margin": int((~firm).sum())}
+    if (out["delta_rel_l2"] > BF16_DELTA_REL or out["logits_rel_l2"] > BF16_DELTA_REL
+            or not np.array_equal(got["actions"], want["actions"])
+            or not np.allclose(got["goal_polar"], want["goal_polar"], rtol=1e-5, atol=1e-6)
+            or bool(((got["policy_action"] != want["policy_action"]) & firm).any())):
+        raise AssertionError(f"full_eval_benchmark's first step, card vs CPU: {out}")
+    return out
+
+
+def _export_roundtrip(dev, root):
+    """(c): a forward-stage and a joint-stage VO checkpoint and an RL
+    checkpoint written on the card, exported, read back through
+    ``from_torch_checkpoints`` / ``load_policy_checkpoint``; the forwards
+    bit-equal to the originals'.  Returns the exported paths."""
+    import torch
+
+    from pointnav_vo_tpu_torch.common import TURN_LEFT, TURN_RIGHT
+    from pointnav_vo_tpu_torch.io.checkpoint import save_checkpoint
+    from pointnav_vo_tpu_torch.io.weights import (POLICY_PREFIX, load_policy_checkpoint,
+                                                  seeded_init_)
+    from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
+    from pointnav_vo_tpu_torch.tools.export_to_reference import export
+    from pointnav_vo_tpu_torch.vo.engine import VORegressionEngine, VOTrainConfig
+    from pointnav_vo_tpu_torch.vo.ensemble import VOEnsemble, VOInferenceConfig
+
+    icfg = VOInferenceConfig(vis_size_h=H, vis_size_w=W)
+    g = torch.Generator().manual_seed(SEED + 51)
+    experts = [seeded_init_(icfg.make_model(), g) for _ in range(3)]
+    paths = {}
+    for stage, act, mods in (("act_forward", 1, experts[:1]),
+                             ("act_left_right", [TURN_LEFT, TURN_RIGHT], experts[1:])):
+        engine = VORegressionEngine(icfg, VOTrainConfig(batch_size=8, action_type=act),
+                                    device=dev, experts=[copy.deepcopy(m) for m in mods])
+        engine.save_ckpt(os.path.join(root, f"{stage}_port.pth"))
+        paths[stage] = os.path.join(root, f"{stage}.pth")
+        export(os.path.join(root, f"{stage}_port.pth"), paths[stage], "vo")
+    ens = VOEnsemble.from_torch_checkpoints(
+        icfg, {"forward": paths["act_forward"], "left": paths["act_left_right"],
+               "right": paths["act_left_right"]}, device=dev)
+    rng = np.random.default_rng(SEED + 52)
+    packed = torch.from_numpy(rng.uniform(0, 1, (6, H, W, 30)).astype(np.float32)).to(dev)
+    actions = np.array([1, 2, 3, 3, 1, 2])
+    got = ens.predict_packed(packed, actions)
+    vo_equal = True
+    with torch.no_grad():
+        for e, m in enumerate(experts):
+            rows = torch.from_numpy(np.nonzero(actions == e + 1)[0]).to(dev)
+            vo_equal &= torch.equal(got[rows], m.to(dev).eval()(packed[rows]))
+    policy = seeded_init_(PointNavActorCritic(image_size=(H, W)), g).to(dev)
+    opt = torch.optim.Adam(policy.parameters(), lr=1e-4)
+    obs = {"depth": torch.from_numpy(rng.uniform(0, 1, (2, H, W, 1)).astype(np.float32)).to(dev),
+           "pointgoal_with_gps_compass": torch.from_numpy(
+               rng.normal(size=(2, 2)).astype(np.float32)).to(dev)}
+    args = (obs, torch.from_numpy(rng.normal(size=(4, 2, 512)).astype(np.float32)).to(dev),
+            torch.zeros((2, 1), dtype=torch.long, device=dev), torch.ones((2, 1), device=dev))
+    policy(*args)[0].sum().backward()
+    opt.step()
+    port = os.path.join(root, "rl_port.pth")
+    save_checkpoint(port, {"state_dict": {POLICY_PREFIX + k: v
+                                          for k, v in policy.state_dict().items()},
+                           "optimizer": opt.state_dict(), "update": 1, "update_idx": 1,
+                           "count_steps": 256})
+    paths["rl_tune_vo"] = os.path.join(root, "rl_tune_vo.pth")
+    info = export(port, paths["rl_tune_vo"], "policy")
+    back = PointNavActorCritic(image_size=(H, W))
+    back.load_state_dict(load_policy_checkpoint(paths["rl_tune_vo"]), strict=True)
+    back.to(dev)
+    with torch.no_grad():
+        pol_equal = all(torch.equal(a, b) for a, b in zip(back(*args), policy(*args)))
+    if not (vo_equal and pol_equal and info["update"] == 1):
+        raise AssertionError(f"export round trip: VO forwards equal {vo_equal}, policy "
+                             f"forwards equal {pol_equal}, {info}")
+    _log("tools", f"export: forward and joint VO checkpoints and an RL checkpoint written on "
+                  f"the card, exported ({', '.join(os.path.basename(p) for p in paths.values())}"
+                  "), read back through from_torch_checkpoints and load_policy_checkpoint: the "
+                  "three experts' det deltas and the policy's logits, value and hidden bit-equal "
+                  "to the originals'")
+    return paths
+
+
+def _verify_card_vs_cpu(paths, root):
+    """(d): ``verify_reference_ckpts`` on the exported files on the card and
+    on the CPU (fp32, TF32 off, no reference clone): both PASS, the card's
+    ``delta_sample0``/``logits_sample0`` within rtol 1e-3 / atol 1e-4 of
+    the CPU's."""
+    from pointnav_vo_tpu_torch.tools import verify_reference_ckpts as verify
+
+    reports = {}
+    for device in ("cuda", "cpu"):
+        report = os.path.join(root, f"verify_{device}.json")
+        rc = verify.main(["--act-forward", paths["act_forward"], "--act-left-right",
+                          paths["act_left_right"], "--rl-tune-vo", paths["rl_tune_vo"],
+                          "--reference-root", os.path.join(root, "no_clone"),
+                          "--report", report, "--device", device])
+        with open(report) as f:
+            reports[device] = json.load(f)
+        if rc != 0 or reports[device]["overall"] != "PASS":
+            raise AssertionError(f"verify_reference_ckpts --device {device}: rc {rc}, "
+                                 f"{reports[device]['overall']}")
+    card, cpu = (reports[d]["files"] for d in ("cuda", "cpu"))
+    pairs = [(card[f]["experts"][e]["delta_sample0"], cpu[f]["experts"][e]["delta_sample0"])
+             for f in card if "experts" in card[f] for e in card[f]["experts"]]
+    pairs.append((card["rl_tune_vo.pth"]["logits_sample0"], cpu["rl_tune_vo.pth"]["logits_sample0"]))
+    err = max(float(np.abs(np.subtract(a, b)).max()) for a, b in pairs)
+    if len(pairs) != 4 or not all(np.allclose(a, b, rtol=1e-3, atol=1e-4) for a, b in pairs):
+        raise AssertionError(f"verify_reference_ckpts card vs CPU: max abs err {err}")
+    _log("tools", f"verify_reference_ckpts on the exported files: PASS on the card and on the "
+                  f"CPU; delta_sample0 of 3 experts and logits_sample0, card vs CPU max abs err "
+                  f"{err:.3e} (rtol 1e-3, atol 1e-4)")
+    return {"overall": {d: r["overall"] for d, r in reports.items()}, "card_vs_cpu_max_abs": err}
+
+
+def phase_measure(dev, card):
+    """Phase 17: full_eval_benchmark, profile_vo_step, the export and the
+    verify tools."""
+    import shutil
+
+    from pointnav_vo_tpu_torch.examples import full_eval_benchmark as feb
+    from pointnav_vo_tpu_torch.examples import profile_vo_step as prof
+    from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+
+    rec = {}
+    # (a) the eval step at N_ENVS envs, FEB_STEPS loop steps, then the chain
+    envs, env_cfg, ens, policy = feb.build(N_ENVS, dev)
+    tk.reset_launch_counts()
+    try:
+        run = feb.run(ens, policy, envs, env_cfg, FEB_STEPS, dev)
+    finally:
+        envs.close()
+    feb_launches = tk.launch_counts["bin_counts"]
+    if feb_launches != run["expected_launches"]:
+        raise AssertionError(f"full_eval_benchmark: {feb_launches} launches; expected "
+                             f"{run['expected_launches']}")
+    lines = feb.report(run, 1)
+    for line in lines:
+        _log("measure", line)
+    rec["full_eval_benchmark"] = {**run, "lines": lines, "card": card}
+    rec["full_eval_benchmark_vs_cpu"] = _feb_vs_cpu(dev, card)
+    _log("measure", f"(a) {FEB_STEPS} loop steps and {run['chained_calls']} chained calls at "
+                    f"{N_ENVS} envs: bin_counts launched {feb_launches} times "
+                    f"(1 + steps + {feb.CHAIN} x calls); first step card vs CPU (seeded bf16 "
+                    f"weights): {json.dumps(rec['full_eval_benchmark_vs_cpu'])} on {card}")
+    # (b) the VO step's stages at STEADY_BATCH
+    tk.reset_launch_counts()
+    stages = prof.profile(STEADY_BATCH, PROFILE_ITERS, dev)
+    bad = [k for k, v in stages.items() if isinstance(v, dict) and "finite" in v and not v["finite"]]
+    if bad or not stages["topdown_equal"]:
+        raise AssertionError(f"profile_vo_step: non-finite stages {bad}, top-down equal "
+                             f"{stages['topdown_equal']}")
+    rec["profile_vo_step"] = {**stages, "card": card}
+    _log("measure", f"(b) profile_vo_step at B={STEADY_BATCH}, {PROFILE_ITERS} iterations: "
+                    f"every stage finite, the kernel's top-down view torch.equal to the plain "
+                    f"version's, {stages['bin_counts_launches']} launches; ms (CUDA events) / "
+                    "device ms (null: not measured): " + json.dumps(
+                        {k: [round(v["ms"], 4), v["device_ms"] and round(v["device_ms"], 4)]
+                         for k, v in stages.items() if isinstance(v, dict) and "ms" in v})
+                    + f" on {card}")
+    # (c), (d) the checkpoint tools
+    root = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        rec["verify"] = _verify_card_vs_cpu(_export_roundtrip(dev, root), root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # and the 2 of the card-vs-CPU step, checked in _feb_vs_cpu
+    rec["launches"] = {"full_eval_benchmark": feb_launches + 2,
+                       "profile_vo_step": stages["bin_counts_launches"]}
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4090,6 +4545,7 @@ def main() -> int:
     dist_rec = timed("dist", phase_dist, dev, card, episodes)
     diag = timed("diag", phase_diag, dev, card)
     pipes = timed("pipelines", phase_pipelines, dev, card)
+    measure = timed("measure", phase_measure, dev, card)
     by_path = {"det_eval": launches["bin_counts"], "det_eval_bf16": main_bf16["launches"],
                "rnd_eval": rnd_launches,
                "train_forward": train["forward"]["launches"],
@@ -4122,7 +4578,8 @@ def main() -> int:
                "diag_train_on": diag["launches"]["train_on"],
                "pipelines_bf16_policy": pipes["bf16_policy"]["launches"],
                **{f"ladder_{k}": v for k, v in pipes["ladder"]["launches"].items()},
-               **pipes["drivers"]["launches"]}
+               **pipes["drivers"]["launches"],
+               **measure["launches"]}
 
     t32 = timings[N_ENVS]  # the main path's batch
     record = {"kernels": [{
@@ -4156,6 +4613,7 @@ def main() -> int:
         "dist": dist_rec,
         "diag": diag,
         "pipelines": pipes,
+        "measure": measure,
         "phase_s": phase_s,
     }]}
     print(json.dumps(record))

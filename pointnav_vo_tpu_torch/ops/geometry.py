@@ -8,6 +8,8 @@ positions ``[..., 3]`` with -z forward and +y up; a local SE(2) delta is
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -26,11 +28,14 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     )
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+
+
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
     """Inverse of a (possibly non-unit) quaternion."""
     sq = torch.sum(q * q, dim=-1, keepdim=True)
-    conj = q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
-    return conj / torch.clamp(sq, min=1e-30)
+    return quat_conjugate(q) / torch.clamp(sq, min=1e-30)
 
 
 def quat_rotate_vector(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -47,6 +52,30 @@ def quat_from_yaw(dyaw: torch.Tensor) -> torch.Tensor:
     half = 0.5 * dyaw
     z = torch.zeros_like(dyaw)
     return torch.stack([z, torch.sin(half), z, torch.cos(half)], dim=-1)
+
+
+def yaw_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Yaw as ``2 * atan2(q_y, q_w)``, how the reference's dataset derives
+    the regression target."""
+    return 2.0 * torch.atan2(q[..., 1], q[..., 3])
+
+
+def agent_state_target2ref(ref_rot: torch.Tensor, ref_pos: torch.Tensor,
+                           tgt_rot: torch.Tensor, tgt_pos: torch.Tensor):
+    """The target agent state in the reference agent's local frame:
+    delta_rot = ref_rot^-1 * tgt_rot, delta_pos = ref_rot^-1 . (tgt_pos - ref_pos)."""
+    inv_ref = quat_inverse(ref_rot)
+    return (quat_multiply(inv_ref, tgt_rot),
+            quat_rotate_vector(inv_ref, tgt_pos - ref_pos))
+
+
+def delta_state_from_poses(ref_rot: torch.Tensor, ref_pos: torch.Tensor,
+                           tgt_rot: torch.Tensor, tgt_pos: torch.Tensor) -> torch.Tensor:
+    """The [dx, dz, dyaw] regression target from two global poses: the
+    target in the reference's frame, its (x, z) and its yaw."""
+    delta_rot, delta_pos = agent_state_target2ref(ref_rot, ref_pos, tgt_rot, tgt_pos)
+    return torch.stack([delta_pos[..., 0], delta_pos[..., 2], yaw_from_quat(delta_rot)],
+                       dim=-1)
 
 
 def compute_global_state(prev_rot: torch.Tensor, prev_pos: torch.Tensor,
@@ -84,3 +113,11 @@ def pointgoal_polar2cartesian(polar: torch.Tensor) -> torch.Tensor:
     x = rho * torch.sin(phi)
     z = -rho * torch.cos(phi)
     return torch.stack([x, torch.zeros_like(x), z], dim=-1)
+
+
+def get_polar_angle(rot: torch.Tensor) -> torch.Tensor:
+    """The agent's heading in map coordinates: the polar angle of its
+    forward axis (-z) minus pi/2."""
+    heading = quat_rotate_vector(quat_inverse(rot), rot.new_tensor([0.0, 0.0, -1.0]))
+    _, phi = cartesian_to_polar(-heading[..., 2], heading[..., 0])
+    return phi - math.pi / 2.0

@@ -138,7 +138,12 @@ def top_down_counts(depth: torch.Tensor,
 def top_down_view_batch(depth: torch.Tensor,
                         params: TopDownParams = TopDownParams()) -> torch.Tensor:
     """Batched projection ``[..., H, W] -> [..., H, W]`` in [0, 1]."""
-    counts = top_down_counts(depth, params)
+    return normalize_counts(top_down_counts(depth, params))
+
+
+def normalize_counts(counts: torch.Tensor) -> torch.Tensor:
+    """Per-cell counts ``[..., H, W]`` over each image's largest count,
+    clamped to 1; an image with no point is all zeros."""
     bound = counts.amax(dim=(-2, -1), keepdim=True)
     return torch.where(bound > 0,
                        torch.clamp(counts / torch.clamp(bound, min=1.0), max=1.0),
