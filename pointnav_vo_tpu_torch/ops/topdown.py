@@ -24,6 +24,7 @@ import torch
 
 from pointnav_vo_tpu_torch.ops.depth import gaussian_blur_3x3
 from pointnav_vo_tpu_torch.ops.topdown_kernels import bin_counts
+from pointnav_vo_tpu_torch.utils.logging import h2d
 
 _EPSILON = 0.01
 
@@ -76,7 +77,7 @@ def pixel_bins(depth: torch.Tensor, params: TopDownParams = TopDownParams()):
     depth = depth.float()
 
     def const(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        return h2d(v, dev, torch.float32)
 
     row_has = depth.sum(2) > 0  # [B, H]
     col_has = depth.sum(1) > 0  # [B, W]

@@ -17,9 +17,12 @@ from typing import Mapping, NamedTuple
 
 import torch
 
-# launches of each kernel wrapper; a run resets and reads them to show that
-# its path went through the kernel
-launch_counts = {"bin_counts": 0}
+from pointnav_vo_tpu_torch.utils.logging import TRACER
+
+# launches of each kernel wrapper, among the tracer's counters; a run resets
+# and reads them to show that its path went through the kernel
+launch_counts = TRACER.counters
+launch_counts.setdefault("bin_counts", 0)
 
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper CTA can opt in to
 MAX_CTA_POINTS = 2**16 - 1  # the most points one CTA adds: a 16-bit count holds them
@@ -45,8 +48,9 @@ MAX_BAND_CELLS = next(c for c in range(SMEM_LIMIT // 2, 0, -1)
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    """Zero the launch counts and every other counter of the tracer, and
+    clear its spans: the start of a measured window."""
+    TRACER.reset()
 
 
 def _check(pix_r, pix_c, keep):
@@ -194,5 +198,5 @@ def bin_counts(pix_r: torch.Tensor, pix_c: torch.Tensor, keep: torch.Tensor,
                           plan.rows_per_band, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"bin_counts kernel launch failed: CUDA error {err}")
-    launch_counts["bin_counts"] += 1
+    TRACER.count("bin_counts")
     return out

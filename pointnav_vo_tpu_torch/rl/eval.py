@@ -42,7 +42,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
-import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -52,6 +51,7 @@ from pointnav_vo_tpu_torch.common import MOVE_FORWARD, resolve_device
 from pointnav_vo_tpu_torch.models.policy import action_log_prob, mode_action, sample_action
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.trainer import act_step, propagate_goal
+from pointnav_vo_tpu_torch.utils.logging import TRACER, Timing
 from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
 
 
@@ -79,23 +79,31 @@ def fused_vo_act_step(policy, vo, prev_feats, cur_rgb, cur_depth, actions_np,
     integrated through the delta and re-seeded where ``reset_mask`` fires.
     Returns ``(goal_cart, polar, delta, std, value, action, logp, hidden,
     cur_feats, est_rot, est_pos)``; ``std`` is zero in det mode.
+
+    The call is the tracer's span ``eval_step``, holding ``features``,
+    ``vo.predict``, ``goal``, ``policy`` and ``pose``.
     """
-    cur_feats = frame_features_packed(cur_rgb, cur_depth, vo.cfg)
-    obs = torch.cat([prev_feats, cur_feats], dim=-1)
-    if vo.cfg.mode == "det":
-        delta = vo.predict_packed(obs, actions_np)
-        std = torch.zeros_like(delta)
-    else:
-        delta, std = vo.predict_rnd_packed(obs, actions_np, generator, vo_masks)
-    goal_cart, polar = propagate_goal(goal_cart, delta, reset_mask, sensor_polar)
-    policy_obs = {"rgb": cur_rgb, "depth": cur_depth,
-                  "pointgoal_with_gps_compass": polar}
-    logits, value, new_hidden = policy(policy_obs, hidden, prev_actions, masks)
-    action = mode_action(logits) if deterministic else sample_action(generator, logits)
-    new_rot, new_pos = _integrate_global(est_rot, est_pos, delta, reset_mask, est_seed_rot,
-                                         est_seed_pos)
-    return (goal_cart, polar, delta, std, value, action, action_log_prob(logits, action),
-            new_hidden, cur_feats, new_rot, new_pos)
+    with TRACER.span("eval_step"):
+        cur_feats = frame_features_packed(cur_rgb, cur_depth, vo.cfg)
+        obs = torch.cat([prev_feats, cur_feats], dim=-1)
+        if vo.cfg.mode == "det":
+            delta = vo.predict_packed(obs, actions_np)
+            std = torch.zeros_like(delta)
+        else:
+            delta, std = vo.predict_rnd_packed(obs, actions_np, generator, vo_masks)
+        with TRACER.span("goal"):
+            goal_cart, polar = propagate_goal(goal_cart, delta, reset_mask, sensor_polar)
+        with TRACER.span("policy"):
+            policy_obs = {"rgb": cur_rgb, "depth": cur_depth,
+                          "pointgoal_with_gps_compass": polar}
+            logits, value, new_hidden = policy(policy_obs, hidden, prev_actions, masks)
+            action = mode_action(logits) if deterministic else sample_action(generator, logits)
+            logp = action_log_prob(logits, action)
+        with TRACER.span("pose"):
+            new_rot, new_pos = _integrate_global(est_rot, est_pos, delta, reset_mask,
+                                                 est_seed_rot, est_seed_pos)
+        return (goal_cart, polar, delta, std, value, action, logp, new_hidden, cur_feats,
+                new_rot, new_pos)
 
 
 @dataclasses.dataclass
@@ -281,7 +289,7 @@ class Evaluator:
         # stuck_thresh (not the reference's collision-gated stuck metric)
         vo_near_zero = {"dx": 0, "dz": 0, "both": 0}
         # fused, act and vo run in one step: their time is "device"
-        timing = {"act": 0.0, "env": 0.0, "vo": 0.0, "device": 0.0, "transfer": 0.0}
+        timing = Timing.fromkeys(("act", "env", "vo", "device", "transfer"), 0.0)
         steps = 0
         loop_step = 0
         ep_steps = np.zeros(n, np.int64)
@@ -306,20 +314,18 @@ class Evaluator:
 
         while active.any():
             if not fused:
-                t0 = time.perf_counter()
-                _v, action, _lp, hidden = act_step(self.model, obs_dev, hidden,
-                                                   prev_actions, masks, act_gen)
-                actions_np = action[:, 0].cpu().numpy()
-                timing["act"] += time.perf_counter() - t0
+                with timing.span("act"):
+                    _v, action, _lp, hidden = act_step(self.model, obs_dev, hidden,
+                                                       prev_actions, masks, act_gen)
+                    actions_np = action[:, 0].cpu().numpy()
 
-            t0 = time.perf_counter()
-            if pending_step:
-                # pushed before the last step's bookkeeping: collect it
-                new_obs, rewards, dones, infos = envs.step_wait()
-                pending_step = False
-            else:
-                new_obs, rewards, dones, infos = envs.step(actions_np)
-            timing["env"] += time.perf_counter() - t0
+            with timing.span("env"):
+                if pending_step:
+                    # pushed before the last step's bookkeeping: collect it
+                    new_obs, rewards, dones, infos = envs.step_wait()
+                    pending_step = False
+                else:
+                    new_obs, rewards, dones, infos = envs.step(actions_np)
             loop_step += 1
             # only steps of counted episodes
             steps += int(active.sum())
@@ -338,79 +344,78 @@ class Evaluator:
                     ep_dz_stuck[i] += dz0
                     ep_both_stuck[i] += dx0 and dz0
 
-            t0 = time.perf_counter()
-            new_obs_dev = self._to_device(new_obs)
-            timing["transfer"] += time.perf_counter() - t0
+            with timing.span("transfer"):
+                new_obs_dev = self._to_device(new_obs)
 
             drift_on = "agent_pos" in infos[0]
             if use_vo:
-                t0 = time.perf_counter()
-                reset = self._tensor(dones)[:, None]
-                sensor = new_obs_dev["pointgoal_with_gps_compass"]
-                if fused:
-                    (goal_cart, polar, delta, std, _value, next_action, _lp, hidden,
-                     feats_cache, est_rot, est_pos) = fused_vo_act_step(
-                        self.model, self.vo, feats_cache, new_obs_dev["rgb"],
-                        new_obs_dev["depth"], actions_np, goal_cart, reset, sensor, hidden,
-                        action, 1.0 - reset, est_rot, est_pos, est_seed_rot, est_seed_pos,
-                        deterministic=self.deterministic, generator=self.generator)
-                    # one packed read-back: delta, std, next action, drift pose
-                    fetched = torch.cat([delta, std, next_action.float(), est_pos],
-                                        dim=1).cpu().numpy()
-                    delta_np, std_np = fetched[:, :3], fetched[:, 3:6]
-                    next_actions_np = fetched[:, 6].astype(np.int64)
-                    est = fetched[:, 7:10]
-                    if can_async:
-                        # the envs simulate the next step during the
-                        # bookkeeping below; if the loop ends now, the
-                        # pushed step is left uncollected (harmless)
-                        envs.step_async(next_actions_np)
-                        pending_step = True
-                else:
-                    delta, std = self._vo_delta(obs_dev, new_obs_dev, actions_np, infos)
-                    goal_cart, polar = propagate_goal(goal_cart, delta, reset, sensor)
-                    delta_np = delta.cpu().numpy()
-                    std_np = std.cpu().numpy()
+                with timing.span("device" if fused else "vo"):
+                    reset = self._tensor(dones)[:, None]
+                    sensor = new_obs_dev["pointgoal_with_gps_compass"]
+                    if fused:
+                        (goal_cart, polar, delta, std, _value, next_action, _lp, hidden,
+                         feats_cache, est_rot, est_pos) = fused_vo_act_step(
+                            self.model, self.vo, feats_cache, new_obs_dev["rgb"],
+                            new_obs_dev["depth"], actions_np, goal_cart, reset, sensor, hidden,
+                            action, 1.0 - reset, est_rot, est_pos, est_seed_rot, est_seed_pos,
+                            deterministic=self.deterministic, generator=self.generator)
+                        # one packed read-back: delta, std, next action, drift pose
+                        fetched = torch.cat([delta, std, next_action.float(), est_pos],
+                                            dim=1).cpu().numpy()
+                        delta_np, std_np = fetched[:, :3], fetched[:, 3:6]
+                        next_actions_np = fetched[:, 6].astype(np.int64)
+                        est = fetched[:, 7:10]
+                        if can_async:
+                            # the envs simulate the next step during the
+                            # bookkeeping below; if the loop ends now, the
+                            # pushed step is left uncollected (harmless)
+                            envs.step_async(next_actions_np)
+                            pending_step = True
+                    else:
+                        delta, std = self._vo_delta(obs_dev, new_obs_dev, actions_np, infos)
+                        goal_cart, polar = propagate_goal(goal_cart, delta, reset, sensor)
+                        delta_np = delta.cpu().numpy()
+                        std_np = std.cpu().numpy()
+                        if drift_on:
+                            est_rot, est_pos = _integrate_global(est_rot, est_pos, delta, reset,
+                                                                 est_seed_rot, est_seed_pos)
+                            est = est_pos.cpu().numpy()
+                    new_obs_dev["pointgoal_with_gps_compass"] = polar
+                    gt = np.stack([i["gt_delta"] for i in infos])
+                    live = ~dones & active
+                    errs_all = np.linalg.norm(delta_np - gt, axis=-1)
+                    if ranked_img_dir and live.any() and "rgb" in new_obs:
+                        worst = int(np.argmax(np.where(live, errs_all, -1)))
+                        ranked_records.append({
+                            "vo_l2": float(errs_all[worst]),
+                            # the previous frame's device copy, as the VO saw it
+                            "prev_rgb": obs_dev["rgb"][worst].cpu().numpy(),
+                            "cur_rgb": np.asarray(new_obs["rgb"][worst]),
+                            "action": int(actions_np[worst]),
+                        })
+                        ranked_records = sorted(ranked_records,
+                                                key=lambda r: -r["vo_l2"])[: 4 * rank_top_k]
+                    if live.any():
+                        vo_l2.append(errs_all[live])
+                        vo_std.append(std_np[live])
+                        ep_vo_sum += np.where(live, errs_all, 0.0)
+                        ep_std_sum += np.where(live, std_np.mean(-1), 0.0)
+                        ep_vo_cnt += live
+                        fwd = live & (actions_np == MOVE_FORWARD)
+                        dx_small = np.abs(delta_np[:, 0]) < self.stuck_thresh
+                        dz_small = np.abs(delta_np[:, 1]) < self.stuck_thresh
+                        vo_near_zero["dx"] += int((fwd & dx_small & ~dz_small).sum())
+                        vo_near_zero["dz"] += int((fwd & dz_small & ~dx_small).sum())
+                        vo_near_zero["both"] += int((fwd & dx_small & dz_small).sum())
+                    # dead-reckoned drift against the true episodic pose
                     if drift_on:
-                        est_rot, est_pos = _integrate_global(est_rot, est_pos, delta, reset,
-                                                             est_seed_rot, est_seed_pos)
-                        est = est_pos.cpu().numpy()
-                new_obs_dev["pointgoal_with_gps_compass"] = polar
-                gt = np.stack([i["gt_delta"] for i in infos])
-                live = ~dones & active
-                errs_all = np.linalg.norm(delta_np - gt, axis=-1)
-                if ranked_img_dir and live.any() and "rgb" in new_obs:
-                    worst = int(np.argmax(np.where(live, errs_all, -1)))
-                    ranked_records.append({
-                        "vo_l2": float(errs_all[worst]),
-                        # the previous frame's device copy, as the VO saw it
-                        "prev_rgb": obs_dev["rgb"][worst].cpu().numpy(),
-                        "cur_rgb": np.asarray(new_obs["rgb"][worst]),
-                        "action": int(actions_np[worst]),
-                    })
-                    ranked_records = sorted(ranked_records,
-                                            key=lambda r: -r["vo_l2"])[: 4 * rank_top_k]
-                if live.any():
-                    vo_l2.append(errs_all[live])
-                    vo_std.append(std_np[live])
-                    ep_vo_sum += np.where(live, errs_all, 0.0)
-                    ep_std_sum += np.where(live, std_np.mean(-1), 0.0)
-                    ep_vo_cnt += live
-                    fwd = live & (actions_np == MOVE_FORWARD)
-                    dx_small = np.abs(delta_np[:, 0]) < self.stuck_thresh
-                    dz_small = np.abs(delta_np[:, 1]) < self.stuck_thresh
-                    vo_near_zero["dx"] += int((fwd & dx_small & ~dz_small).sum())
-                    vo_near_zero["dz"] += int((fwd & dz_small & ~dx_small).sum())
-                    vo_near_zero["both"] += int((fwd & dx_small & dz_small).sum())
-                # dead-reckoned drift against the true episodic pose
-                if drift_on:
-                    for i, info in enumerate(infos):
-                        if active[i] and not dones[i]:
-                            d_i = float(np.linalg.norm(est[i] - info["agent_pos_episodic"]))
-                            drift.append(d_i)
-                            ep_drift_sum[i] += d_i
-                            ep_drift_cnt[i] += 1
-                timing["device" if fused else "vo"] += time.perf_counter() - t0
+                        for i, info in enumerate(infos):
+                            if active[i] and not dones[i]:
+                                d_i = float(np.linalg.norm(est[i]
+                                                           - info["agent_pos_episodic"]))
+                                drift.append(d_i)
+                                ep_drift_sum[i] += d_i
+                                ep_drift_cnt[i] += 1
 
             if videos_done < video_episodes and "rgb" in new_obs:
                 from pointnav_vo_tpu_torch.vis.maps import (

@@ -26,7 +26,6 @@ clip as that run would.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from typing import Dict, Mapping, Optional
 
@@ -46,6 +45,7 @@ from pointnav_vo_tpu_torch.parallel.dist import rank_seed
 from pointnav_vo_tpu_torch.ops import geometry as geo
 from pointnav_vo_tpu_torch.rl.ppo import PPOConfig, make_optimizer, ppo_update
 from pointnav_vo_tpu_torch.rl.rollout import RolloutStorage
+from pointnav_vo_tpu_torch.utils.logging import Timing
 from pointnav_vo_tpu_torch.vo.ensemble import frame_features_packed
 
 GOAL_KEY = "pointgoal_with_gps_compass"
@@ -145,7 +145,7 @@ class DDPPOTrainer:
         self.episode_reward = np.zeros(n)
         self.count_steps = 0
         self.update_idx = 0
-        self.timing = {"env": 0.0, "act": 0.0, "vo": 0.0, "update": 0.0}
+        self.timing = Timing.fromkeys(("env", "act", "vo", "update"), 0.0)
 
     def _to_device(self, obs: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.asarray(v)).to(self.device) for k, v in obs.items()}
@@ -155,24 +155,24 @@ class DDPPOTrainer:
     def _vo_update_goal(self, prev_obs, new_obs_np, new_obs, actions_np, reset, infos):
         """The VO-propagated goal in polar form ``[N, 2]`` after one step;
         ``reset`` ``[N, 1]`` is 1 where an episode just began."""
-        t0 = time.perf_counter()
-        if self.vo_fn is not None:
-            delta = torch.as_tensor(self.vo_fn(prev_obs, new_obs_np, actions_np, infos),
-                                    dtype=torch.float32, device=self.device)
-        else:
-            if self._vo_feats is None:  # the first frame's, once
-                self._vo_feats = frame_features_packed(prev_obs["rgb"], prev_obs["depth"],
-                                                       self.vo.cfg)
-            if self.vo.cfg.mode == "det":
-                delta, self._vo_feats = self.vo.predict_step_cached(
-                    self._vo_feats, new_obs["rgb"], new_obs["depth"], actions_np)
+        with self.timing.span("vo"):
+            if self.vo_fn is not None:
+                delta = torch.as_tensor(self.vo_fn(prev_obs, new_obs_np, actions_np, infos),
+                                        dtype=torch.float32, device=self.device)
             else:
-                cur = frame_features_packed(new_obs["rgb"], new_obs["depth"], self.vo.cfg)
-                delta, _std = self.vo.predict_rnd_packed(
-                    torch.cat([self._vo_feats, cur], dim=-1), actions_np, self.generator)
-                self._vo_feats = cur
-        self.goal_cart, polar = propagate_goal(self.goal_cart, delta, reset, new_obs[GOAL_KEY])
-        self.timing["vo"] += time.perf_counter() - t0
+                if self._vo_feats is None:  # the first frame's, once
+                    self._vo_feats = frame_features_packed(prev_obs["rgb"], prev_obs["depth"],
+                                                           self.vo.cfg)
+                if self.vo.cfg.mode == "det":
+                    delta, self._vo_feats = self.vo.predict_step_cached(
+                        self._vo_feats, new_obs["rgb"], new_obs["depth"], actions_np)
+                else:
+                    cur = frame_features_packed(new_obs["rgb"], new_obs["depth"], self.vo.cfg)
+                    delta, _std = self.vo.predict_rnd_packed(
+                        torch.cat([self._vo_feats, cur], dim=-1), actions_np, self.generator)
+                    self._vo_feats = cur
+            self.goal_cart, polar = propagate_goal(self.goal_cart, delta, reset,
+                                                   new_obs[GOAL_KEY])
         return polar
 
     def collect_rollout(self) -> None:
@@ -181,16 +181,14 @@ class DDPPOTrainer:
         world = 1 if self.group is None else self.group.world
         finished = []  # (step, env, reward) of each episode that ended
         for step in range(self.cfg.num_steps):
-            t0 = time.perf_counter()
-            value, action, logp, new_hidden = act_step(
-                self.model, self._last_obs, self.hidden, self.prev_actions, self.masks,
-                self.generator, update_stats=self.update_stats)
-            actions_np = action[:, 0].cpu().numpy()  # the step's one read-back
-            self.timing["act"] += time.perf_counter() - t0
+            with self.timing.span("act"):
+                value, action, logp, new_hidden = act_step(
+                    self.model, self._last_obs, self.hidden, self.prev_actions, self.masks,
+                    self.generator, update_stats=self.update_stats)
+                actions_np = action[:, 0].cpu().numpy()  # the step's one read-back
 
-            t0 = time.perf_counter()
-            obs, rewards, dones, infos = self.envs.step(actions_np)
-            self.timing["env"] += time.perf_counter() - t0
+            with self.timing.span("env"):
+                obs, rewards, dones, infos = self.envs.step(actions_np)
 
             self.episode_reward += rewards
             for i, d in enumerate(dones):
@@ -226,19 +224,18 @@ class DDPPOTrainer:
         order drawn from the generator) and the roll to the next rollout.
         Neither the bootstrap act nor the update moves the whitening
         buffers."""
-        t0 = time.perf_counter()
-        next_value, _, _, _ = act_step(self.model, self._last_obs, self.hidden,
-                                       self.prev_actions, self.masks)
-        self.rollouts.compute_returns(next_value, self.cfg.use_gae, self.cfg.gamma,
-                                      self.cfg.tau)
-        clip = self.cfg.clip_param
-        if self.cfg.use_linear_clip_decay and self.total_updates:
-            clip = clip * max(0.0, 1.0 - self.update_idx / self.total_updates)
-        stats = ppo_update(self.model, self.cfg, self.optimizer, self.rollouts, order=order,
-                           generator=self.generator, clip_param=clip)
-        stats = {k: float(v) for k, v in stats.items()}
-        self.rollouts.after_update()
-        self.timing["update"] += time.perf_counter() - t0
+        with self.timing.span("update"):
+            next_value, _, _, _ = act_step(self.model, self._last_obs, self.hidden,
+                                           self.prev_actions, self.masks)
+            self.rollouts.compute_returns(next_value, self.cfg.use_gae, self.cfg.gamma,
+                                          self.cfg.tau)
+            clip = self.cfg.clip_param
+            if self.cfg.use_linear_clip_decay and self.total_updates:
+                clip = clip * max(0.0, 1.0 - self.update_idx / self.total_updates)
+            stats = ppo_update(self.model, self.cfg, self.optimizer, self.rollouts, order=order,
+                               generator=self.generator, clip_param=clip)
+            stats = {k: float(v) for k, v in stats.items()}
+            self.rollouts.after_update()
         self.update_idx += 1
         return stats
 

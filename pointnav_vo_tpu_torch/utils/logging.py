@@ -1,6 +1,8 @@
 """Observability (counterpart of ``utils/logging.py``): the logger, the
 null-object TensorBoard writer, the append-merge info-dict store, the
-phase timer, a ``torch.profiler`` trace scope and the run directories.
+tracer (:class:`Timing`, its process-wide instance :data:`TRACER` and the
+counted upload :func:`h2d`), a ``torch.profiler`` trace scope and the run
+directories.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import time
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _FORMAT = "%(asctime)s %(levelname)s %(message)s"
 
@@ -93,26 +97,130 @@ def append_jsonl(record: Dict[str, Any], path: str) -> None:
         f.write(json.dumps(record, default=float) + "\n")
 
 
-class Timing(dict):
-    """Accumulating phase timer: ``with timing.span('env'): ...``"""
+_now = time.perf_counter_ns
 
-    @contextlib.contextmanager
-    def span(self, key: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self[key] = self.get(key, 0.0) + time.perf_counter() - t0
+
+class _Span:
+    """One span of a :class:`Timing`: a class with ``__slots__`` rather
+    than a generator, as the hot paths open some 25 to 60 spans a step."""
+
+    __slots__ = ("timing", "name", "agg", "t0", "rf")
+
+    def __init__(self, timing: "Timing", name: str):
+        self.timing = timing
+        self.name = name
+
+    def __enter__(self):
+        agg = self.timing
+        if _autograd_profiler._is_profiler_enabled:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+            if agg.profiled is not None:
+                agg = agg.profiled
+        else:
+            self.rf = None
+        self.agg = agg
+        agg.open.append(self.name)
+        self.t0 = _now()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = _now() - self.t0
+        agg, name = self.agg, self.name
+        agg.open.pop()
+        a = agg.aggs.get(name)
+        if a is None:  # [count, total ns, the spans open around it]
+            a = agg.aggs[name] = [0, 0, set()]
+        a[0] += 1
+        a[1] += dt
+        a[2].add(agg.open[-1] if agg.open else None)
+        agg[name] = a[1] * 1e-9
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        return False
+
+
+class Timing(dict):
+    """A set of named aggregates: ``with timing.span(name): ...`` and
+    ``timing.count(name, n)``.
+
+    The dict maps each span's name to its total seconds; ``aggs`` holds its
+    count, total nanoseconds (``time.perf_counter_ns``) and parents (the
+    names of the spans open around it, None at the top), and ``counters``
+    the counts: one entry a name, whatever the number of spans.  Spans
+    nest within one thread.
+
+    While a ``torch.profiler`` records, a span also opens
+    ``record_function(name)``, which puts it in the profiler's trace on the
+    device's clock; where ``profiled`` is a Timing, such spans aggregate
+    there instead, as the profiler slows the host.  Counters count in every
+    mode: a launch or a sync is one whoever watches.
+    """
+
+    def __init__(self, *args, profiled: Optional["Timing"] = None, **kw):
+        super().__init__(*args, **kw)
+        self.aggs: Dict[str, list] = {}
+        self.counters: Dict[str, int] = {}
+        self.open: list = []
+        self.profiled = profiled
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counters[name] = self.counters.get(name, 0) + n
+
+    def reset(self) -> None:
+        """Clear the spans and zero the counters in place (their keys, and
+        the dict itself, stay: callers hold it, as
+        ``ops/topdown_kernels.py::launch_counts``)."""
+        self.clear()
+        self.aggs.clear()
+        for k in self.counters:
+            self.counters[k] = 0
+        if self.profiled is not None:
+            self.profiled.reset()
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The aggregates as plain data: ``spans`` (each name's ``count``,
+        ``total_ns`` and sorted ``parents``), ``counters``, and
+        ``profiled``, the spans taken while a profiler recorded, where they
+        are kept apart."""
+        out: Dict[str, Any] = {
+            "spans": {k: {"count": c, "total_ns": ns, "parents": sorted(p, key=str)}
+                      for k, (c, ns, p) in self.aggs.items()},
+            "counters": dict(self.counters)}
+        if self.profiled is not None:
+            out["profiled"] = self.profiled.snapshot()["spans"]
+        return out
+
+
+# the hot paths' tracer: the eval step and the VO train step record their
+# layers here, and ``ops/topdown_kernels.py`` its launches
+TRACER = Timing(profiled=Timing())
+
+
+def h2d(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.as_tensor(a, dtype=dtype).to(device)`` (a numpy array is
+    shared, not copied, on the host): a blocking copy from pageable host
+    memory, which on the card waits for the work queued before it.  Counted
+    under ``host_syncs`` and ``h2d_bytes`` on every device, and timed as the
+    span ``sync.h2d``."""
+    t = torch.as_tensor(a, dtype=dtype)
+    TRACER.count("host_syncs")
+    TRACER.count("h2d_bytes", t.nbytes)
+    with TRACER.span("sync.h2d"):
+        return t.to(device)
 
 
 @contextlib.contextmanager
 def trace(log_dir: Optional[str] = None):
     """``torch.profiler`` scope over the host and the card, written as a
-    Chrome trace under ``log_dir`` (no ``log_dir``: no trace)."""
+    Chrome trace under ``log_dir`` (no ``log_dir``: no trace), with
+    :data:`TRACER`'s snapshot as ``spans.json`` beside it."""
     if not log_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -122,6 +230,8 @@ def trace(log_dir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "spans.json"), "w") as f:
+        json.dump(TRACER.snapshot(), f, indent=1)
 
 
 def update_config_log(config, run_type: str, log_dir: str):

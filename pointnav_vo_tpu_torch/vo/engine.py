@@ -77,6 +77,7 @@ from pointnav_vo_tpu_torch.io.weights import seeded_init_
 from pointnav_vo_tpu_torch.models.running_mean_var import set_stats_group
 from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN, VOCNNActEmbed
 from pointnav_vo_tpu_torch.parallel.dist import rank_seed, shard_slice
+from pointnav_vo_tpu_torch.utils.logging import TRACER, h2d
 from pointnav_vo_tpu_torch.vo import losses as losses_lib
 from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader, unpack_twins
 from pointnav_vo_tpu_torch.vo.ensemble import (
@@ -143,7 +144,7 @@ def batch_to_device(batch: FramePairBatch, device) -> Dict[str, torch.Tensor]:
     twin-packed batch ships its ``[B/2]`` entry pixels as ``entry_*``."""
 
     def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return h2d(np.ascontiguousarray(a), device)
 
     out = {
         "actions": t(batch.actions.astype(np.int64)),
@@ -218,8 +219,8 @@ def attach_expert_buckets(arrs: Mapping[str, torch.Tensor], actions_np,
     out = dict(arrs)
     for j in range(len(ea)):
         rows = np.flatnonzero(owner == j)
-        out[f"bucket_idx_{j}"] = torch.from_numpy(rows).to(dev)
-        out[f"bucket_own_{j}"] = torch.from_numpy(match[rows, j].astype(np.float32)).to(dev)
+        out[f"bucket_idx_{j}"] = h2d(rows, dev)
+        out[f"bucket_own_{j}"] = h2d(match[rows, j].astype(np.float32), dev)
     return out
 
 
@@ -398,58 +399,74 @@ class VORegressionEngine:
         self._snap_batch: Optional[FramePairBatch] = None
 
     def _to_device(self, batch: FramePairBatch, pad_to: Optional[int] = None):
-        arrs = batch_to_device(batch, self.device)
-        actions = batch.actions
-        if pad_to is not None:
-            arrs = pad_batch(arrs, pad_to)
-            actions = np.pad(actions, (0, pad_to - actions.shape[0]))
-        return attach_expert_buckets(arrs, actions, self.tcfg.expert_actions)
+        """The batch and its expert buckets on the device (the span
+        ``vo_train.upload``)."""
+        with TRACER.span("vo_train.upload"):
+            arrs = batch_to_device(batch, self.device)
+            actions = batch.actions
+            if pad_to is not None:
+                arrs = pad_batch(arrs, pad_to)
+                actions = np.pad(actions, (0, pad_to - actions.shape[0]))
+            return attach_expert_buckets(arrs, actions, self.tcfg.expert_actions)
 
     def train_step(self, batch: FramePairBatch) -> Dict[str, torch.Tensor]:
         """One update on a host batch (the whole host's batch in a group:
         the rank trains on its block); the metrics stay on the device.  The
         step's gradients stay in the parameters' ``.grad`` until the next.
         Under ``debug`` a raise leaves the whitening statistics as they
-        were, as the JAX engine's functional step leaves its variables."""
-        if self.group is not None:
-            batch = shard_frame_pairs(batch, self.group.local_rank, self.group.local_world)
-        arrs = self._to_device(batch)
-        self.opt.zero_grad(set_to_none=False)
-        if not self.tcfg.debug:
-            metrics = self._gradients(arrs)
-        else:
-            buffers = [b for m in self.experts for b in m.buffers()]
-            saved = [b.clone() for b in buffers]
-            try:
+        were, as the JAX engine's functional step leaves its variables.
+
+        The call is the tracer's span ``vo_train.step``, holding
+        ``vo_train.upload``, ``.features``, ``.forward``, ``.loss``,
+        ``.backward``, ``.allreduce`` (in a group) and ``.optimizer``."""
+        with TRACER.span("vo_train.step"):
+            if self.group is not None:
+                batch = shard_frame_pairs(batch, self.group.local_rank,
+                                          self.group.local_world)
+            arrs = self._to_device(batch)
+            with TRACER.span("vo_train.optimizer"):
+                self.opt.zero_grad(set_to_none=False)
+            if not self.tcfg.debug:
                 metrics = self._gradients(arrs)
-            except (FloatingPointError, RuntimeError):
-                with torch.no_grad():
-                    for b, v in zip(buffers, saved):
-                        b.copy_(v)
-                raise
-        self.opt.step()
-        return metrics
+            else:
+                buffers = [b for m in self.experts for b in m.buffers()]
+                saved = [b.clone() for b in buffers]
+                try:
+                    metrics = self._gradients(arrs)
+                except (FloatingPointError, RuntimeError):
+                    with torch.no_grad():
+                        for b, v in zip(buffers, saved):
+                            b.copy_(v)
+                    raise
+            with TRACER.span("vo_train.optimizer"):
+                self.opt.step()
+            return metrics
 
     def _gradients(self, arrs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """The step up to the update: forward (the whitening statistics
         merge the batch), loss, backward and the group's all-reduce, with
         the diagnostics; returns the metrics."""
-        obs = obs_pairs_from_batch(arrs, self.icfg)
+        with TRACER.span("vo_train.features"):
+            obs = obs_pairs_from_batch(arrs, self.icfg)
         gen = self.generator if self.icfg.dropout_p > 0 else None
-        preds = forward_experts(self.experts, obs, arrs, True, gen)
-        total, metrics = vo_loss(preds, arrs, self.tcfg)
+        with TRACER.span("vo_train.forward"):
+            preds = forward_experts(self.experts, obs, arrs, True, gen)
+        with TRACER.span("vo_train.loss"):
+            total, metrics = vo_loss(preds, arrs, self.tcfg)
         debug = bool(self.tcfg.debug)
         if debug and self.group is None:
             # before the backward, as jax_debug_nans stops at the forward's NaN
             _raise_if_nonfinite("loss or metrics", metrics)
-            with _anomaly_mode():
+            with _anomaly_mode(), TRACER.span("vo_train.backward"):
                 total.backward()
         else:
-            total.backward()
+            with TRACER.span("vo_train.backward"):
+                total.backward()
         if self.group is not None:
             params = [p for m in self.experts for p in m.parameters()]
-            self.group.all_reduce_([p.grad for p in params], "mean")
-            self.group.all_reduce_(list(metrics.values()), "mean")
+            with TRACER.span("vo_train.allreduce"):
+                self.group.all_reduce_([p.grad for p in params], "mean")
+                self.group.all_reduce_(list(metrics.values()), "mean")
         if self.tcfg.log_grad or debug:
             norms = grad_norms(self.experts)
             if debug:  # after the all-reduce: every rank of a group raises together

@@ -46,6 +46,7 @@ from pointnav_vo_tpu_torch.models.vo_cnn import (
 from pointnav_vo_tpu_torch.ops.depth import discretize_depth
 from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
 from pointnav_vo_tpu_torch.ops.transforms import TRANSFORMS, apply_obs_transform
+from pointnav_vo_tpu_torch.utils.logging import TRACER, h2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +157,7 @@ def pack_frame_features(feats: Mapping[str, torch.Tensor],
         if k in feats:
             v = feats[k].to(cfg.dtype)
             if k == "rgb":
-                v = v / v.new_tensor(255.0)
+                v = v / h2d(255.0, v.device, v.dtype)
             parts.append(v)
     pack = torch.cat(parts, dim=-1)
     if cfg.cache_dtype == "int8":
@@ -176,8 +177,9 @@ def dequantize_rows(rows: torch.Tensor, cfg: VOInferenceConfig) -> torch.Tensor:
 def frame_features_packed(rgb: torch.Tensor, depth: torch.Tensor,
                           cfg: VOInferenceConfig) -> torch.Tensor:
     """Per-frame packed stem block: ``cat(prev_pack, cur_pack)`` is the
-    encoder's stem input."""
-    return pack_frame_features(frame_features(rgb, depth, cfg), cfg)
+    encoder's stem input (the span ``features``)."""
+    with TRACER.span("features"):
+        return pack_frame_features(frame_features(rgb, depth, cfg), cfg)
 
 
 def pair_from_features(prev_feats: Mapping[str, torch.Tensor],
@@ -295,16 +297,19 @@ class VOEnsemble:
     @torch.no_grad()
     def predict_packed(self, obs_pairs: torch.Tensor, actions_np) -> torch.Tensor:
         """Det delta ``[B, 3]`` (float32) of packed pairs ``[B, H, W, 2C]``;
-        each sample runs the expert of its host action."""
-        out = torch.zeros((obs_pairs.shape[0], 3), dtype=torch.float32,
-                          device=obs_pairs.device)
-        for expert, rows in zip(self.experts, expert_rows(actions_np)):
-            if rows.size == 0:
-                continue
-            idx = torch.from_numpy(rows).to(obs_pairs.device)
-            sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
-            out.index_copy_(0, idx, expert(sub).float())
-        return out
+        each sample runs the expert of its host action (the span
+        ``vo.predict``, and ``vo.expert`` for each expert with rows)."""
+        with TRACER.span("vo.predict"):
+            out = torch.zeros((obs_pairs.shape[0], 3), dtype=torch.float32,
+                              device=obs_pairs.device)
+            for expert, rows in zip(self.experts, expert_rows(actions_np)):
+                if rows.size == 0:
+                    continue
+                with TRACER.span("vo.expert"):
+                    idx = h2d(rows, obs_pairs.device)
+                    sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
+                    out.index_copy_(0, idx, expert(sub).float())
+            return out
 
     def draw_masks(self, generator: torch.Generator, batch: int) -> DropoutMasks:
         """The keep masks of one rnd call, ``[rnd_mode_n, batch, flat]`` and
@@ -320,23 +325,26 @@ class VOEnsemble:
         """rnd mode: (mean, std) ``[B, 3]`` over ``rnd_mode_n`` dropout passes
         of each sample's own expert, std the population std.  The keep masks
         are ``masks`` (see :meth:`draw_masks`) or drawn from ``generator``.
-        Each expert's encoder runs once; its trunk runs all passes at once."""
+        Each expert's encoder runs once; its trunk runs all passes at once
+        (the spans as :meth:`predict_packed`'s)."""
         batch = obs_pairs.shape[0]
         if masks is None:
             if generator is None:
                 raise ValueError("rnd mode needs dropout masks or a generator")
             masks = self.draw_masks(generator, batch)
         k = self.cfg.rnd_mode_n
-        samples = torch.zeros((k, batch, 3), dtype=torch.float32, device=obs_pairs.device)
-        for expert, rows in zip(self.experts, expert_rows(actions_np)):
-            if rows.size == 0:
-                continue
-            idx = torch.from_numpy(rows).to(obs_pairs.device)
-            sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
-            feats = expert.visual_encoder(sub).flatten(1)
-            own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
-            samples.index_copy_(1, idx, expert.trunk(feats, own).float())
-        return pass_mean_std(samples)
+        with TRACER.span("vo.predict"):
+            samples = torch.zeros((k, batch, 3), dtype=torch.float32, device=obs_pairs.device)
+            for expert, rows in zip(self.experts, expert_rows(actions_np)):
+                if rows.size == 0:
+                    continue
+                with TRACER.span("vo.expert"):
+                    idx = h2d(rows, obs_pairs.device)
+                    sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
+                    feats = expert.visual_encoder(sub).flatten(1)
+                    own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
+                    samples.index_copy_(1, idx, expert.trunk(feats, own).float())
+            return pass_mean_std(samples)
 
     def predict(self, obs_pairs: torch.Tensor, actions_np,
                 generator: Optional[torch.Generator] = None):

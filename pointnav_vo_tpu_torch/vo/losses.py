@@ -25,6 +25,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from pointnav_vo_tpu_torch.common import EPSILON, MOVE_FORWARD, NO_NOISE_DELTAS
+from pointnav_vo_tpu_torch.utils.logging import h2d
 
 DELTA_NAMES = ("dx", "dz", "dyaw")
 
@@ -40,12 +41,11 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim=None) -> tor
 def compute_loss_weights(actions: torch.Tensor, gt_deltas: torch.Tensor,
                          multiplier: Mapping[str, float], fixed: bool = True) -> torch.Tensor:
     """``[B, 3]`` per-sample per-delta loss weights."""
-    mult = torch.tensor([multiplier[k] for k in DELTA_NAMES], dtype=torch.float32,
-                        device=gt_deltas.device)
+    mult = h2d([multiplier[k] for k in DELTA_NAMES], gt_deltas.device, torch.float32)
     if fixed:
         return mult.expand(gt_deltas.shape)
-    table = torch.tensor([NO_NOISE_DELTAS.get(a, [0.0, 0.0, 0.0]) for a in range(4)],
-                         dtype=torch.float32, device=gt_deltas.device)
+    table = h2d([NO_NOISE_DELTAS.get(a, [0.0, 0.0, 0.0]) for a in range(4)],
+                gt_deltas.device, torch.float32)
     no_noise = table[actions.long()]
     return torch.exp(mult * torch.abs(no_noise - gt_deltas))
 
@@ -66,7 +66,7 @@ def weighted_mse_with_diagnostics(
         col_mask = col_mask * valid[:, None]
         denom = torch.clamp((valid[:, None] * torch.ones_like(diffs)).sum(0), min=1.0)
     else:
-        denom = torch.clamp(torch.tensor(float(diffs.shape[0]), device=diffs.device), min=1.0)
+        denom = torch.clamp(h2d(float(diffs.shape[0]), diffs.device), min=1.0)
     loss = ((diffs * weights * col_mask).sum(0) / denom).sum()
 
     abs_diff = _masked_mean(torch.sqrt(diffs.detach()), col_mask, dim=0)
