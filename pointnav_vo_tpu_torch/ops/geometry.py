@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from pointnav_vo_tpu_torch.utils.logging import h2d
+from pointnav_vo_tpu_torch.utils.logging import device_const
 
 
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
@@ -31,7 +31,7 @@ def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
 
 
 def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
-    return q * h2d([-1.0, -1.0, -1.0, 1.0], q.device, q.dtype)
+    return q * device_const((-1.0, -1.0, -1.0, 1.0), q.device, q.dtype)
 
 
 def quat_inverse(q: torch.Tensor) -> torch.Tensor:
@@ -120,6 +120,7 @@ def pointgoal_polar2cartesian(polar: torch.Tensor) -> torch.Tensor:
 def get_polar_angle(rot: torch.Tensor) -> torch.Tensor:
     """The agent's heading in map coordinates: the polar angle of its
     forward axis (-z) minus pi/2."""
-    heading = quat_rotate_vector(quat_inverse(rot), h2d([0.0, 0.0, -1.0], rot.device, rot.dtype))
+    heading = quat_rotate_vector(quat_inverse(rot),
+                                 device_const((0.0, 0.0, -1.0), rot.device, rot.dtype))
     _, phi = cartesian_to_polar(-heading[..., 2], heading[..., 0])
     return phi - math.pi / 2.0

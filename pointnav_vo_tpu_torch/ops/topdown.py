@@ -24,7 +24,7 @@ import torch
 
 from pointnav_vo_tpu_torch.ops.depth import gaussian_blur_3x3
 from pointnav_vo_tpu_torch.ops.topdown_kernels import bin_counts
-from pointnav_vo_tpu_torch.utils.logging import h2d
+from pointnav_vo_tpu_torch.utils.logging import device_const
 
 _EPSILON = 0.01
 
@@ -68,7 +68,8 @@ def pixel_bins(depth: torch.Tensor, params: TopDownParams = TopDownParams()):
 
     Constants enter the arithmetic as float32 tensors on the depth's device:
     CUDA divides by a host scalar as a multiply by its reciprocal, which is
-    not the true division the CPU and the JAX twin do.
+    not the true division the CPU and the JAX twin do.  They are cached
+    there (:func:`device_const`), so a call makes no host sync.
     """
     h, w = params.vis_size_h, params.vis_size_w
     if depth.dim() != 3 or tuple(depth.shape[1:]) != (h, w):
@@ -77,7 +78,7 @@ def pixel_bins(depth: torch.Tensor, params: TopDownParams = TopDownParams()):
     depth = depth.float()
 
     def const(v):
-        return h2d(v, dev, torch.float32)
+        return device_const(v, dev)
 
     row_has = depth.sum(2) > 0  # [B, H]
     col_has = depth.sum(1) > 0  # [B, W]

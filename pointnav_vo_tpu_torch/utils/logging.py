@@ -1,8 +1,8 @@
 """Observability (counterpart of ``utils/logging.py``): the logger, the
 null-object TensorBoard writer, the append-merge info-dict store, the
 tracer (:class:`Timing`, its process-wide instance :data:`TRACER` and the
-counted upload :func:`h2d`), a ``torch.profiler`` trace scope and the run
-directories.
+counted uploads :func:`h2d`, :func:`h2d_async` and :func:`device_const`), a
+``torch.profiler`` trace scope and the run directories.
 """
 
 from __future__ import annotations
@@ -205,12 +205,58 @@ def h2d(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     shared, not copied, on the host): a blocking copy from pageable host
     memory, which on the card waits for the work queued before it.  Counted
     under ``host_syncs`` and ``h2d_bytes`` on every device, and timed as the
-    span ``sync.h2d``."""
+    span ``sync.h2d``.
+
+    The hot paths' only blocking uploads are the eval step's expert row
+    indices (``vo/ensemble.py``) and the first upload of each constant
+    (:func:`device_const`); the train step's batch and buckets go through
+    :func:`h2d_async`."""
     t = torch.as_tensor(a, dtype=dtype)
     TRACER.count("host_syncs")
     TRACER.count("h2d_bytes", t.nbytes)
     with TRACER.span("sync.h2d"):
         return t.to(device)
+
+
+def h2d_async(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``a`` on ``device`` without a host sync: on the card a copy into
+    pinned host memory, then a copy queued on the current stream
+    (``non_blocking``).  The caching host allocator records an event on the
+    stream and reuses the pinned block only after the copy has run, so the
+    caller may overwrite ``a`` as soon as this returns.  Elsewhere (and for
+    an empty array, which copies nothing) as :func:`h2d`.  Counted under
+    ``h2d_async`` and ``h2d_async_bytes``, not ``host_syncs``."""
+    t = torch.as_tensor(a, dtype=dtype)
+    TRACER.count("h2d_async")
+    TRACER.count("h2d_async_bytes", t.nbytes)
+    if torch.device(device).type == "cuda" and t.numel():
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+# device_const's cache: (shape, float64 bytes, device, dtype) -> tensor
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_const(value, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``value`` (a number or a nested sequence of numbers) as a ``dtype``
+    tensor on ``device``, uploaded once by :func:`h2d` and cached for the
+    life of the process, so a step's constants make no host sync; a hit is
+    counted under ``const_hits``.  The key is the value's float64
+    bits (``-0.0`` is not ``0.0``), its shape, the device (``cuda`` is the
+    current card's index) and the dtype.  A cached tensor is shared by
+    every caller: never write to it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    arr = np.asarray(value, np.float64)
+    key = (arr.shape, arr.tobytes(), dev, dtype)
+    t = _CONSTS.get(key)
+    if t is not None:
+        TRACER.count("const_hits")
+        return t
+    t = _CONSTS[key] = h2d(arr, dev, dtype)
+    return t
 
 
 @contextlib.contextmanager

@@ -77,7 +77,7 @@ from pointnav_vo_tpu_torch.io.weights import seeded_init_
 from pointnav_vo_tpu_torch.models.running_mean_var import set_stats_group
 from pointnav_vo_tpu_torch.models.vo_cnn import VOCNN, VOCNNActEmbed
 from pointnav_vo_tpu_torch.parallel.dist import rank_seed, shard_slice
-from pointnav_vo_tpu_torch.utils.logging import TRACER, h2d
+from pointnav_vo_tpu_torch.utils.logging import TRACER, h2d_async
 from pointnav_vo_tpu_torch.vo import losses as losses_lib
 from pointnav_vo_tpu_torch.vo.dataset import FramePairBatch, PrefetchingLoader, unpack_twins
 from pointnav_vo_tpu_torch.vo.ensemble import (
@@ -139,12 +139,14 @@ class VOTrainConfig:
 
 
 def batch_to_device(batch: FramePairBatch, device) -> Dict[str, torch.Tensor]:
-    """A host batch as device tensors.  rgb ships as uint8 and depth in its
-    stored dtype; the features upcast on the device (exactly).  A
-    twin-packed batch ships its ``[B/2]`` entry pixels as ``entry_*``."""
+    """A host batch as device tensors, each uploaded without a host sync
+    (:func:`h2d_async`: the batch's arrays may be overwritten as soon as
+    this returns).  rgb ships as uint8 and depth in its stored dtype; the
+    features upcast on the device (exactly).  A twin-packed batch ships its
+    ``[B/2]`` entry pixels as ``entry_*``."""
 
     def t(a):
-        return h2d(np.ascontiguousarray(a), device)
+        return h2d_async(np.ascontiguousarray(a), device)
 
     out = {
         "actions": t(batch.actions.astype(np.int64)),
@@ -210,7 +212,8 @@ def attach_expert_buckets(arrs: Mapping[str, torch.Tensor], actions_np,
     whitening statistics).  A row runs the first expert whose action it
     has, the first expert where it has none; a unified expert (action -1)
     owns every row.  In the joint stage each expert gets exactly its B/2
-    twins."""
+    twins.  Both upload without a host sync (:func:`h2d_async`); an expert
+    with no rows gets empty ones."""
     acts = np.asarray(actions_np).astype(np.int64).reshape(-1)
     ea = np.asarray(expert_actions, np.int64)
     match = (acts[:, None] == ea[None, :]) | (ea[None, :] == -1)
@@ -219,8 +222,8 @@ def attach_expert_buckets(arrs: Mapping[str, torch.Tensor], actions_np,
     out = dict(arrs)
     for j in range(len(ea)):
         rows = np.flatnonzero(owner == j)
-        out[f"bucket_idx_{j}"] = h2d(rows, dev)
-        out[f"bucket_own_{j}"] = h2d(match[rows, j].astype(np.float32), dev)
+        out[f"bucket_idx_{j}"] = h2d_async(rows, dev)
+        out[f"bucket_own_{j}"] = h2d_async(match[rows, j].astype(np.float32), dev)
     return out
 
 
@@ -399,8 +402,8 @@ class VORegressionEngine:
         self._snap_batch: Optional[FramePairBatch] = None
 
     def _to_device(self, batch: FramePairBatch, pad_to: Optional[int] = None):
-        """The batch and its expert buckets on the device (the span
-        ``vo_train.upload``)."""
+        """The batch and its expert buckets on the device, with no host sync
+        (the span ``vo_train.upload``)."""
         with TRACER.span("vo_train.upload"):
             arrs = batch_to_device(batch, self.device)
             actions = batch.actions

@@ -46,7 +46,7 @@ from pointnav_vo_tpu_torch.models.vo_cnn import (
 from pointnav_vo_tpu_torch.ops.depth import discretize_depth
 from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
 from pointnav_vo_tpu_torch.ops.transforms import TRANSFORMS, apply_obs_transform
-from pointnav_vo_tpu_torch.utils.logging import TRACER, h2d
+from pointnav_vo_tpu_torch.utils.logging import TRACER, device_const, h2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,15 +149,15 @@ _PACK_ORDER = ("rgb", "depth", "discretized_depth", "top_down_view")
 def pack_frame_features(feats: Mapping[str, torch.Tensor],
                         cfg: VOInferenceConfig) -> torch.Tensor:
     """One ``[B, H, W, C]`` block in stem channel order in the compute
-    dtype, rgb scaled by 1/255 in it (a true division: a device tensor, not
-    a host scalar, see ``ops/topdown.py::pixel_bins``); with
+    dtype, rgb scaled by 1/255 in it (a true division: a cached device
+    tensor, not a host scalar, see ``ops/topdown.py::pixel_bins``); with
     ``cache_dtype="int8"``, ``clip(round(x * 127), 0, 127)`` as int8."""
     parts = []
     for k in _PACK_ORDER:
         if k in feats:
             v = feats[k].to(cfg.dtype)
             if k == "rgb":
-                v = v / h2d(255.0, v.device, v.dtype)
+                v = v / device_const(255.0, v.device, v.dtype)
             parts.append(v)
     pack = torch.cat(parts, dim=-1)
     if cfg.cache_dtype == "int8":

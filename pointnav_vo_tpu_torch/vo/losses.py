@@ -25,7 +25,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from pointnav_vo_tpu_torch.common import EPSILON, MOVE_FORWARD, NO_NOISE_DELTAS
-from pointnav_vo_tpu_torch.utils.logging import h2d
+from pointnav_vo_tpu_torch.utils.logging import device_const
 
 DELTA_NAMES = ("dx", "dz", "dyaw")
 
@@ -41,11 +41,11 @@ def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim=None) -> tor
 def compute_loss_weights(actions: torch.Tensor, gt_deltas: torch.Tensor,
                          multiplier: Mapping[str, float], fixed: bool = True) -> torch.Tensor:
     """``[B, 3]`` per-sample per-delta loss weights."""
-    mult = h2d([multiplier[k] for k in DELTA_NAMES], gt_deltas.device, torch.float32)
+    mult = device_const([multiplier[k] for k in DELTA_NAMES], gt_deltas.device)
     if fixed:
         return mult.expand(gt_deltas.shape)
-    table = h2d([NO_NOISE_DELTAS.get(a, [0.0, 0.0, 0.0]) for a in range(4)],
-                gt_deltas.device, torch.float32)
+    table = device_const([NO_NOISE_DELTAS.get(a, [0.0, 0.0, 0.0]) for a in range(4)],
+                         gt_deltas.device)
     no_noise = table[actions.long()]
     return torch.exp(mult * torch.abs(no_noise - gt_deltas))
 
@@ -66,7 +66,7 @@ def weighted_mse_with_diagnostics(
         col_mask = col_mask * valid[:, None]
         denom = torch.clamp((valid[:, None] * torch.ones_like(diffs)).sum(0), min=1.0)
     else:
-        denom = torch.clamp(h2d(float(diffs.shape[0]), diffs.device), min=1.0)
+        denom = device_const(max(float(diffs.shape[0]), 1.0), diffs.device)
     loss = ((diffs * weights * col_mask).sum(0) / denom).sum()
 
     abs_diff = _masked_mean(torch.sqrt(diffs.detach()), col_mask, dim=0)

@@ -1,13 +1,17 @@
-"""The tracer (``utils/logging.py``: ``Timing``, ``TRACER``, ``h2d``): its
-aggregates and counters, its ranges under ``torch.profiler``, the reset it
-shares with the launch counts, and the blocking uploads it counts in the
-eval step and the VO train step (CPU); on the card (``-m cuda``, skipped
-where there is none) that count against CUDA's own sync debug mode.
+"""The tracer (``utils/logging.py``: ``Timing``, ``TRACER``, ``h2d``,
+``h2d_async``, ``device_const``): its aggregates and counters, its ranges
+under ``torch.profiler``, the reset it shares with the launch counts, the
+cached constants, and the uploads it counts in the eval step and the VO
+train step (CPU); on the card (``-m cuda``, skipped where there is none)
+that count against CUDA's own sync debug mode, a host batch overwritten
+while its upload may still be queued, and the pinned pool over many steps.
 
 No JAX here: the card's machine runs ``pytest -m cuda --noconftest`` on
 this file.
 """
 
+import copy
+import dataclasses
 import json
 import linecache
 import os
@@ -21,6 +25,7 @@ import torch
 from pointnav_vo_tpu_torch.io.weights import seeded_init_
 from pointnav_vo_tpu_torch.models.policy import PointNavActorCritic
 from pointnav_vo_tpu_torch.ops import topdown_kernels as tk
+from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, pixel_bins
 from pointnav_vo_tpu_torch.rl.eval import fused_vo_act_step
 from pointnav_vo_tpu_torch.utils import logging as tlog
 from pointnav_vo_tpu_torch.utils.logging import TRACER, Timing
@@ -33,9 +38,10 @@ from pointnav_vo_tpu_torch.vo.ensemble import (
 )
 
 H, W, N, HIDDEN, BATCH = 32, 48, 6, 32, 8
-# blocking uploads of constants: a frame's features make 13 (the 12 float32
-# constants of ops/topdown.py::pixel_bins, the 255 of pack_frame_features),
-# the goal's geometry 1, the loss weights 1
+# cached constants (utils/logging.py::device_const), each a const_hit once
+# warm and a blocking upload only on its first use: a frame's features take
+# 13 (the 12 float32 constants of ops/topdown.py::pixel_bins, the 255 of
+# pack_frame_features), the goal's geometry 1, the loss weights 1
 FRAME_CONSTANTS = 13
 EVAL_CONSTANTS = FRAME_CONSTANTS + 1
 TRAIN_CONSTANTS = 2 * FRAME_CONSTANTS + 1
@@ -164,6 +170,72 @@ def test_h2d_counts_every_copy_whatever_the_device():
     assert _counted(TRACER) == {"sync.h2d": 1}
 
 
+def test_h2d_async_on_the_cpu_equals_h2d_and_counts_apart():
+    a = np.arange(12, dtype=np.int32).reshape(3, 4)
+    for dtype in (None, torch.float64):
+        want = tlog.h2d(a, "cpu", dtype)
+        tk.reset_launch_counts()
+        got = tlog.h2d_async(a, torch.device("cpu"), dtype)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert TRACER.counters["host_syncs"] == 0 and TRACER.counters["h2d_async"] == 1
+        assert TRACER.counters["h2d_async_bytes"] == want.nbytes
+        assert _counted(TRACER) == {}
+
+
+def test_an_expert_without_rows_gets_empty_buckets():
+    arrs = {"actions": tlog.h2d_async(np.ones(4, np.int64), "cpu")}
+    out = tengine.attach_expert_buckets(arrs, np.ones(4, np.int32), (1, 2))
+    assert torch.equal(out["bucket_idx_0"], torch.arange(4))
+    assert out["bucket_idx_1"].dtype == torch.int64 and out["bucket_idx_1"].shape == (0,)
+    assert out["bucket_own_1"].dtype == torch.float32 and out["bucket_own_1"].shape == (0,)
+    assert TRACER.counters["h2d_async"] == 5 and TRACER.counters.get("host_syncs", 0) == 0
+
+
+def test_device_const_is_uploaded_once_and_then_shared(monkeypatch):
+    monkeypatch.setattr(tlog, "_CONSTS", {})
+    first = tlog.device_const(0.1, "cpu")
+    assert TRACER.counters["host_syncs"] == 1 and TRACER.counters.get("const_hits", 0) == 0
+    assert tlog.device_const(0.1, torch.device("cpu")) is first
+    assert tlog.device_const(0.1, "cpu", torch.float32) is first
+    assert TRACER.counters["host_syncs"] == 1 and TRACER.counters["const_hits"] == 2
+    # exact: the value a Python float rounds to in the dtype, no other
+    assert first.dtype == torch.float32 and first.shape == ()
+    assert torch.equal(first, torch.tensor(0.1, dtype=torch.float32))
+    table = tlog.device_const([[0.0, -0.25, 0.0], [1.5, 2.0, -3.0]], "cpu", torch.float64)
+    assert table.dtype == torch.float64 and table.tolist() == [[0.0, -0.25, 0.0],
+                                                              [1.5, 2.0, -3.0]]
+    assert torch.equal(tlog.device_const(255.0, "cpu", torch.bfloat16),
+                       torch.tensor(255.0, dtype=torch.bfloat16))
+
+
+def test_device_const_keys_on_the_device_the_dtype_the_shape_and_the_bits(monkeypatch):
+    monkeypatch.setattr(tlog, "_CONSTS", {})
+    base = tlog.device_const(2.0, "cpu")
+    others = [tlog.device_const(2.0, "cpu", torch.float64), tlog.device_const(2.0, "meta"),
+              tlog.device_const([2.0], "cpu"), tlog.device_const(2.5, "cpu")]
+    assert all(o is not base for o in others) and len({id(o) for o in others}) == 4
+    assert others[0].dtype == torch.float64 and others[1].device.type == "meta"
+    assert others[2].shape == (1,)
+    zero, neg = tlog.device_const(0.0, "cpu"), tlog.device_const(-0.0, "cpu")
+    assert zero is not neg and torch.signbit(neg) and not torch.signbit(zero)
+    assert TRACER.counters["host_syncs"] == 7 and TRACER.counters.get("const_hits", 0) == 0
+
+
+def test_pixel_bins_are_bit_identical_on_a_cold_and_a_warm_cache(monkeypatch):
+    monkeypatch.setattr(tlog, "_CONSTS", {})
+    params = TopDownParams(vis_size_h=H, vis_size_w=W, rows_around_center=10)
+    depth = torch.from_numpy(np.random.default_rng(2).uniform(0, 1, (3, H, W))
+                             .astype(np.float32))
+    depth[0, :3] = 0.0  # an empty border to strip
+    cold = pixel_bins(depth, params)
+    assert TRACER.counters["host_syncs"] == 10  # 12 constants, 2 of them repeats
+    tk.reset_launch_counts()
+    warm = pixel_bins(depth, params)
+    assert TRACER.counters["host_syncs"] == 0 and TRACER.counters["const_hits"] == 12
+    for c, w in zip(cold, warm):
+        assert c.dtype == w.dtype and torch.equal(c, w)
+
+
 # ------------------------------------------------------ the eval and train steps
 
 
@@ -215,20 +287,20 @@ EVAL_MIXES = {  # actions -> experts with rows (STOP runs the forward expert)
 def test_eval_step_counts_one_upload_per_expert_with_rows(mix, mode):
     actions, experts = EVAL_MIXES[mix]
     step = _eval_step(torch.device("cpu"), actions, mode)
+    step()  # warm-up: the constants' first uploads
     tk.reset_launch_counts()
     for _ in range(2):
         step()
-    assert TRACER.counters["host_syncs"] == 2 * (experts + EVAL_CONSTANTS)
-    # every row's int64 index; the constants' 12 + 1 + 4 float32
-    assert TRACER.counters["h2d_bytes"] == 2 * (8 * N + 4 * 17)
+    assert TRACER.counters["host_syncs"] == 2 * experts
+    assert TRACER.counters["const_hits"] == 2 * EVAL_CONSTANTS
+    assert TRACER.counters["h2d_bytes"] == 2 * 8 * N  # every row's int64 index
     calls = _counted(TRACER)
     assert calls == {"eval_step": 2, "features": 2, "vo.predict": 2, "vo.expert": 2 * experts,
-                     "sync.h2d": 2 * (experts + EVAL_CONSTANTS), "goal": 2, "policy": 2,
-                     "pose": 2}
+                     "sync.h2d": 2 * experts, "goal": 2, "policy": 2, "pose": 2}
     parents = {k: v["parents"] for k, v in TRACER.snapshot()["spans"].items()}
     assert parents == {"eval_step": [None], "features": ["eval_step"],
                        "vo.predict": ["eval_step"], "vo.expert": ["vo.predict"],
-                       "sync.h2d": ["features", "goal", "vo.expert"], "goal": ["eval_step"],
+                       "sync.h2d": ["vo.expert"], "goal": ["eval_step"],
                        "policy": ["eval_step"], "pose": ["eval_step"]}
 
 
@@ -265,17 +337,22 @@ def _engine(stage, dev):
 def test_train_step_counts_eight_uploads_plus_two_per_expert(stage):
     _kw, actions, data_types, experts = TRAIN_STAGES[stage]
     engine = _engine(stage, torch.device("cpu"))
+    engine.train_step(_frame_pairs(actions, data_types, 1))  # warm-up: the constants
     batch = _frame_pairs(actions, data_types)
     tk.reset_launch_counts()
     engine.train_step(batch)
-    assert TRACER.counters["host_syncs"] == 8 + 2 * experts + TRAIN_CONSTANTS
+    assert TRACER.counters["host_syncs"] == 0
+    assert TRACER.counters["h2d_async"] == 8 + 2 * experts
+    assert TRACER.counters["const_hits"] == TRAIN_CONSTANTS
+    # per row: actions, data types int64, gt 3 and dz mask float32, both
+    # frames' rgb uint8 and depth float32, its bucket's int64 index and
+    # float32 ownership
+    assert TRACER.counters["h2d_async_bytes"] == BATCH * (8 + 8 + 12 + 4 + 14 * H * W + 12)
     calls = _counted(TRACER)
-    assert calls == {"vo_train.step": 1, "vo_train.upload": 1,
-                     "sync.h2d": 8 + 2 * experts + TRAIN_CONSTANTS, "vo_train.optimizer": 2,
+    assert calls == {"vo_train.step": 1, "vo_train.upload": 1, "vo_train.optimizer": 2,
                      "vo_train.features": 1, "features": 2, "vo_train.forward": 1,
                      "vo_train.loss": 1, "vo_train.backward": 1}
     parents = {k: v["parents"] for k, v in TRACER.snapshot()["spans"].items()}
-    assert parents["sync.h2d"] == ["features", "vo_train.loss", "vo_train.upload"]
     assert parents["features"] == ["vo_train.features"]
     assert {p for k in calls if k.startswith("vo_train.") and k != "vo_train.step"
             for p in parents[k]} == {"vo_train.step"}
@@ -319,9 +396,9 @@ def _sync_warnings(fn):
 def test_eval_step_syncs_are_the_counted_ones_on_card(cuda, mix, mode):
     actions, experts = EVAL_MIXES[mix]
     step = _eval_step(cuda, actions, mode)
-    step()  # the first call's set-up (cuDNN plans, the kernel's build)
+    step()  # the first call's set-up (cuDNN plans, the kernel's build, the constants)
     counted, syncs, others = _sync_warnings(step)
-    assert counted == experts + EVAL_CONSTANTS
+    assert counted == experts  # the row indices; the constants are cached
     assert sum(syncs.values()) == counted, (dict(syncs), others)
 
 
@@ -333,6 +410,77 @@ def test_train_step_syncs_are_the_counted_ones_on_card(cuda, stage):
     engine.train_step(_frame_pairs(actions, data_types, 0))
     counted, syncs, others = _sync_warnings(lambda: engine.train_step(
         _frame_pairs(actions, data_types, 1)))
-    assert counted == 8 + 2 * experts + TRAIN_CONSTANTS
-    assert sum(syncs.values()) == counted, (dict(syncs), others)
+    assert counted == 0 and not syncs, (dict(syncs), others)
+
+
+def _overwrite(batch: FramePairBatch) -> None:
+    for f in dataclasses.fields(batch):
+        a = getattr(batch, f.name)
+        if isinstance(a, np.ndarray):
+            a.fill(7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", list(TRAIN_STAGES))
+def test_host_batch_may_be_overwritten_once_train_step_returns_on_card(cuda, stage):
+    """Every array of each host batch overwritten right after
+    ``train_step`` returns, before any sync: three steps give the losses
+    and parameters of a run on untouched copies, bit for bit (cuDNN's
+    deterministic algorithms on both runs)."""
+    _kw, actions, data_types, _experts = TRAIN_STAGES[stage]
+    batches = [_frame_pairs(actions, data_types, s) for s in range(3)]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = []
+        for overwrite in (False, True):
+            engine = _engine(stage, cuda)
+            losses = []
+            for b in copy.deepcopy(batches):
+                losses.append(engine.train_step(b)["total_loss"])
+                if overwrite:
+                    _overwrite(b)
+            torch.cuda.synchronize()
+            runs.append(([float(x) for x in losses],
+                         [p.detach().cpu() for m in engine.experts for p in m.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (loss_a, params_a), (loss_b, params_b) = runs
+    assert loss_a == loss_b
+    assert all(torch.equal(a, b) for a, b in zip(params_a, params_b))
+
+
+@pytest.mark.cuda
+def test_pinned_host_memory_stays_bounded_on_card(cuda):
+    """30 train steps, synchronised every 5 as a loop that logs: the pinned
+    pool grows by at most what 6 steps' uploads hold rounded to powers of
+    two (a leak would hold all 30)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        pytest.skip("this torch has no torch.cuda.host_memory_stats")
+    _kw, actions, data_types, _experts = TRAIN_STAGES["forward"]
+    engine = _engine("forward", cuda)
+    batch = _frame_pairs(actions, data_types)
+    engine.train_step(batch)
+    torch.cuda.synchronize()
+    before = stats().get("allocated_bytes.current")
+    if before is None:
+        pytest.skip("this torch's host_memory_stats has no allocated_bytes.current")
+    tk.reset_launch_counts()
+    for i in range(30):
+        engine.train_step(batch)
+        if i % 5 == 4:
+            torch.cuda.synchronize()
+    step_bytes = TRACER.counters["h2d_async_bytes"] / 30
+    grown = stats()["allocated_bytes.current"] - before
+    assert TRACER.counters["host_syncs"] == 0
+    assert grown <= 15 * step_bytes, (grown, step_bytes)
+
+
+@pytest.mark.cuda
+def test_device_const_shares_one_entry_for_cuda_and_its_index_on_card(cuda):
+    index = torch.cuda.current_device()
+    a = tlog.device_const(0.375, "cuda")
+    assert a.device == torch.device("cuda", index)
+    assert tlog.device_const(0.375, f"cuda:{index}") is a
 
