@@ -8,12 +8,20 @@ trunk, the policy's encoder on 2x2-pooled depth, its goal and output
 layers) and the LSTM's gate products.  Left out: GroupNorm, whitening,
 pooling, activations, the feature pipeline and every other elementwise op
 (a few percent of the step's arithmetic).  One multiply-add is 2 FLOPs.
+
+``resnet_macs`` counts the two plans of ``PLANS`` here; for any other
+backbone it asks the ``macs`` of ``benchmark/reference/backbones/<name>.py``,
+which is analytic too: written from the published plan, a grouped conv
+counting ``cin / groups`` input channels an output and an SE gate its two
+linears.
 """
 
 from __future__ import annotations
 
 import math
 from typing import Dict, Mapping, Tuple
+
+from benchmark.reference import backbones
 
 PLANS = {"resnet18": ("basic", (2, 2, 2, 2)), "resnet50": ("bottleneck", (3, 4, 6, 3))}
 EXPANSION = {"basic": 1, "bottleneck": 4}
@@ -30,7 +38,10 @@ def _conv(cin, cout, k, s, p, h, w) -> Tuple[int, int, int]:
 
 def resnet_macs(name: str, cin: int, h: int, w: int, base: int = 32) -> Tuple[int, int, int, int]:
     """(multiply-adds, channels, height, width) of the GroupNorm ResNet's
-    output on a ``cin x h x w`` input."""
+    output on a ``cin x h x w`` input; a backbone outside ``PLANS`` from
+    its file under ``benchmark/reference/backbones/``."""
+    if name not in PLANS:
+        return backbones.lookup(name).macs(cin, h, w, base)
     kind, layers = PLANS[name]
     macs, h, w = _conv(cin, base, 7, 2, 3, h, w)
     h, w = _out(h, 3, 2, 1), _out(w, 3, 2, 1)  # max-pool

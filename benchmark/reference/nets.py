@@ -9,6 +9,12 @@ followed by GN; a downsample (1x1 conv + GN) is built where a stage's first
 block changes width or stride.  The compression conv leaves
 ``round(2048 / (fh * fw))`` channels of the 1/32 map.  The LSTM is written
 out by gates (i, f, g, o).
+
+The encoders build their backbone through :func:`make_backbone`:
+``ResNet`` for a name in ``PLANS`` (``resnet18``, ``resnet50``), and for
+any other name the module that ``benchmark/reference/backbones/<name>.py``
+builds, looked up while the encoder is built; a name that no file serves
+fails there, naming the file.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from benchmark.reference import backbones
 
 GN_EPS = 1e-6
 PLANS = {"resnet18": ("basic", (2, 2, 2, 2)), "resnet50": ("bottleneck", (3, 4, 6, 3))}
@@ -77,6 +85,14 @@ class ResNet(nn.Module):
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
+def make_backbone(name: str, cin: int, base: int = 32) -> nn.Module:
+    """The backbone ``name`` on ``cin`` channels: a plan of ``PLANS``, or
+    the module of its file under ``backbones/``."""
+    if name in PLANS:
+        return ResNet(name, cin, base)
+    return backbones.lookup(name).build(cin, base)
+
+
 class Whitening(nn.Module):
     """Per-channel running mean and variance; a batch merges by Chan's
     formula before it is normalised (std floored at 0.1)."""
@@ -117,7 +133,7 @@ class VOEncoder(nn.Module):
     def __init__(self, cin: int, h: int, w: int, backbone: str, base: int = 32):
         super().__init__()
         self.running_mean_and_var = Whitening(cin)
-        self.backbone = ResNet(backbone, cin, base)
+        self.backbone = make_backbone(backbone, cin, base)
         fh, fw = math.ceil(h / 32), math.ceil(w / 32)
         self.compression, ch = compression(self.backbone.final_channels, fh, fw)
         self.flat = ch * fh * fw
@@ -189,7 +205,7 @@ class LSTM(nn.Module):
 class _PolicyEncoder(nn.Module):
     def __init__(self, h, w, backbone, base=32):
         super().__init__()
-        self.backbone = ResNet(backbone, 1, base)
+        self.backbone = make_backbone(backbone, 1, base)
         fh, fw = math.ceil((h // 2) / 32), math.ceil((w // 2) / 32)
         self.compression, ch = compression(self.backbone.final_channels, fh, fw)
         self.flat = ch * fh * fw

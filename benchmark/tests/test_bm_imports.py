@@ -10,6 +10,10 @@ from pathlib import Path
 BENCH = Path(__file__).resolve().parents[1]
 REPO = BENCH.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "pointnav_vo_tpu"}
+# the reference's backbone package and each of its files
+BACKBONES = ", ".join(["benchmark.reference.backbones"] + [
+    f"benchmark.reference.backbones.{p.stem}"
+    for p in sorted((BENCH / "reference" / "backbones").glob("*.py")) if p.stem != "__init__"])
 
 
 def _loaded_after(code: str) -> set:
@@ -28,6 +32,7 @@ def test_harness_entries_metrics_and_reference_load_no_jax():
         "import benchmark.entries.eval_step, benchmark.entries.vo_train",
         "import benchmark.reference.nets, benchmark.reference.features",
         "import benchmark.reference.geometry, benchmark.reference.vo_train",
+        f"import {BACKBONES}",
         "import benchmark.traffic_gen.generate",
         "import pointnav_vo_tpu_torch.rl.eval, pointnav_vo_tpu_torch.vo.engine",
         f"for name in {metrics!r}:",
@@ -43,7 +48,8 @@ def test_harness_entries_metrics_and_reference_load_no_jax():
 def test_reference_and_traffic_load_nothing_of_the_port():
     loaded = _loaded_after("import benchmark.reference.nets, benchmark.reference.features, "
                            "benchmark.reference.geometry, benchmark.reference.vo_train, "
-                           "benchmark.traffic_gen.generate, benchmark.weights, benchmark.flops")
+                           "benchmark.traffic_gen.generate, benchmark.weights, benchmark.flops, "
+                           + BACKBONES)
     assert not (loaded & (FORBIDDEN | {"pointnav_vo_tpu_torch"})), loaded
 
 
@@ -61,5 +67,5 @@ def test_no_source_file_names_jax_and_the_reference_names_no_port():
     for path in BENCH.rglob("*.py"):
         names = _imports(path)
         assert not (names & FORBIDDEN), (path, names & FORBIDDEN)
-        if path.parent.name in ("reference", "traffic_gen"):
+        if {"reference", "traffic_gen"} & set(path.relative_to(BENCH).parts[:-1]):
             assert "pointnav_vo_tpu_torch" not in names, path
