@@ -61,6 +61,7 @@ from pointnav_vo_tpu_torch.models import resnet as resnet_lib
 from pointnav_vo_tpu_torch.models.rnn import RNNStateEncoder
 from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
 from pointnav_vo_tpu_torch.models.vo_cnn import compression_channels
+from pointnav_vo_tpu_torch.utils.logging import TRACER
 
 PREV_ACTION_EMBED_DIM = 32
 GOAL_EMBED_DIM = 32
@@ -228,26 +229,32 @@ class _ActorCritic(nn.Module):
         (``pointgoal_with_gps_compass`` ``[N, 2]``); hidden
         ``[num_packed_hidden, N, H]``; prev_actions ``[N, 1]`` int; masks
         ``[N, 1]`` float.  Or a sequence: each with a leading time axis,
-        ``[T, N, ...]``."""
+        ``[T, N, ...]``.  The tracer's spans ``policy.encoder``
+        (``_features``), ``policy.rnn`` (the state encoder) and
+        ``policy.heads`` (the two linears) cover the three parts."""
         seq = prev_actions.dim() == 3
         if seq:
             t, n = prev_actions.shape[:2]
             observations = {k: observations[k].reshape((t * n,) + observations[k].shape[2:])
                             for k in self.observation_keys}
             prev_actions, masks = prev_actions.reshape(t * n, 1), masks.reshape(t * n, 1)
-        x = self._features(observations, prev_actions, masks, update_stats)
+        with TRACER.span("policy.encoder"):
+            x = self._features(observations, prev_actions, masks, update_stats)
         dtype = x.dtype
-        encoder = self.net.state_encoder
-        rnn_dtype = encoder.rnn.weight_ih_l0.dtype  # float32 under bfloat16 compute
-        x, hidden, masks = x.to(rnn_dtype), hidden.to(rnn_dtype), masks.to(rnn_dtype)
-        if seq:
-            x, hidden = encoder(x.reshape(t, n, -1), hidden, masks.reshape(t, n, 1))
-            x = x.reshape(t * n, -1)
-        else:
-            x, hidden = encoder(x, hidden, masks)
-        x = x.to(dtype)
-        out = torch.promote_types(dtype, torch.float32)
-        return self.action_distribution.linear(x).to(out), self.critic.fc(x).to(out), hidden
+        with TRACER.span("policy.rnn"):
+            encoder = self.net.state_encoder
+            rnn_dtype = encoder.rnn.weight_ih_l0.dtype  # float32 under bfloat16 compute
+            x, hidden, masks = x.to(rnn_dtype), hidden.to(rnn_dtype), masks.to(rnn_dtype)
+            if seq:
+                x, hidden = encoder(x.reshape(t, n, -1), hidden, masks.reshape(t, n, 1))
+                x = x.reshape(t * n, -1)
+            else:
+                x, hidden = encoder(x, hidden, masks)
+            x = x.to(dtype)
+        with TRACER.span("policy.heads"):
+            out = torch.promote_types(dtype, torch.float32)
+            return (self.action_distribution.linear(x).to(out), self.critic.fc(x).to(out),
+                    hidden)
 
 
 class PointNavActorCritic(_ActorCritic):

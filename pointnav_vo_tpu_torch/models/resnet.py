@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointnav_vo_tpu_torch.utils.logging import TRACER
+
 GN_EPS = 1e-6
 SE_REDUCTION = 16
 
@@ -71,7 +73,8 @@ def group_norm(ngroups: int, channels: int) -> GroupNorm:
 
 class SEModule(nn.Module):
     """Squeeze-excitation gate: spatial mean, ``excite`` (Linear to
-    channels // 16, ReLU, Linear back, Sigmoid), then a channel scale."""
+    channels // 16, ReLU, Linear back, Sigmoid), then a channel scale.
+    Each gate applied counts once in the tracer's ``se_gates``."""
 
     def __init__(self, channels: int, r: int = SE_REDUCTION):
         super().__init__()
@@ -79,6 +82,7 @@ class SEModule(nn.Module):
                                     Linear(channels // r, channels), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        TRACER.count("se_gates")
         return x * self.excite(x.mean(dim=(2, 3)))[:, :, None, None]
 
 

@@ -296,12 +296,15 @@ def test_eval_step_counts_one_upload_per_expert_with_rows(mix, mode):
     assert TRACER.counters["h2d_bytes"] == 2 * 8 * N  # every row's int64 index
     calls = _counted(TRACER)
     assert calls == {"eval_step": 2, "features": 2, "vo.predict": 2, "vo.expert": 2 * experts,
-                     "sync.h2d": 2 * experts, "goal": 2, "policy": 2, "pose": 2}
+                     "sync.h2d": 2 * experts, "goal": 2, "policy": 2, "policy.encoder": 2,
+                     "policy.rnn": 2, "policy.heads": 2, "pose": 2}
     parents = {k: v["parents"] for k, v in TRACER.snapshot()["spans"].items()}
     assert parents == {"eval_step": [None], "features": ["eval_step"],
                        "vo.predict": ["eval_step"], "vo.expert": ["vo.predict"],
                        "sync.h2d": ["vo.expert"], "goal": ["eval_step"],
-                       "policy": ["eval_step"], "pose": ["eval_step"]}
+                       "policy": ["eval_step"], "policy.encoder": ["policy"],
+                       "policy.rnn": ["policy"], "policy.heads": ["policy"],
+                       "pose": ["eval_step"]}
 
 
 def _frame_pairs(actions, data_types, seed=0) -> FramePairBatch:
