@@ -50,7 +50,7 @@ policy's sequence hidden 1.11e-3 (1e-3), and one whitening variance
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,6 +58,7 @@ from torch import nn
 
 from pointnav_vo_tpu_torch.common import N_ACTS
 from pointnav_vo_tpu_torch.models import resnet as resnet_lib
+from pointnav_vo_tpu_torch.models.feature_graphs import FeatureGraphs, eager_reason
 from pointnav_vo_tpu_torch.models.rnn import RNNStateEncoder
 from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
 from pointnav_vo_tpu_torch.models.vo_cnn import compression_channels
@@ -206,6 +207,7 @@ class _ActorCritic(nn.Module):
         self.observation_keys = net.visual_encoder.vis_types + (GOAL_KEY,)
         self.action_distribution = _CategoricalHead(hidden_size)
         self.critic = _CriticHead(hidden_size)
+        self._graphs = FeatureGraphs()
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:
@@ -223,6 +225,27 @@ class _ActorCritic(nn.Module):
         return torch.zeros(self.num_packed_hidden, num_envs, self.hidden_size,
                            device=device)
 
+    def feature_roots(self) -> List[nn.Module]:
+        """The modules ``_features`` runs or reads, with theirs: the net's
+        children but the state encoder."""
+        return [c for name, c in self.net.named_children() if name != "state_encoder"]
+
+    def _encode(self, observations, prev_actions, masks, update_stats, seq) -> torch.Tensor:
+        """``_features``, replayed from a CUDA graph where
+        ``models/feature_graphs.py`` finds the call fit for one."""
+        keys = self.observation_keys
+        inputs = [observations[k] for k in keys] + [prev_actions, masks]
+        tree = self._graphs.tree(self.feature_roots())
+        if eager_reason(tree, inputs, seq, update_stats) is not None:
+            if not seq:
+                TRACER.count("policy_graph_eager")
+            return self._features(observations, prev_actions, masks, update_stats)
+
+        def features(*xs):
+            return self._features(dict(zip(keys, xs)), xs[-2], xs[-1], False)
+
+        return self._graphs.run(features, tree, inputs, self.compute_dtype)
+
     def forward(self, observations: Dict[str, torch.Tensor], hidden: torch.Tensor,
                 prev_actions: torch.Tensor, masks: torch.Tensor, update_stats: bool = False):
         """observations: those of ``observation_keys``, ``[N, ...]``
@@ -230,8 +253,9 @@ class _ActorCritic(nn.Module):
         ``[num_packed_hidden, N, H]``; prev_actions ``[N, 1]`` int; masks
         ``[N, 1]`` float.  Or a sequence: each with a leading time axis,
         ``[T, N, ...]``.  The tracer's spans ``policy.encoder``
-        (``_features``), ``policy.rnn`` (the state encoder) and
-        ``policy.heads`` (the two linears) cover the three parts."""
+        (``_features``, replayed from a CUDA graph where the call allows,
+        ``models/feature_graphs.py``), ``policy.rnn`` (the state encoder)
+        and ``policy.heads`` (the two linears) cover the three parts."""
         seq = prev_actions.dim() == 3
         if seq:
             t, n = prev_actions.shape[:2]
@@ -239,7 +263,7 @@ class _ActorCritic(nn.Module):
                             for k in self.observation_keys}
             prev_actions, masks = prev_actions.reshape(t * n, 1), masks.reshape(t * n, 1)
         with TRACER.span("policy.encoder"):
-            x = self._features(observations, prev_actions, masks, update_stats)
+            x = self._encode(observations, prev_actions, masks, update_stats, seq)
         dtype = x.dtype
         with TRACER.span("policy.rnn"):
             encoder = self.net.state_encoder
