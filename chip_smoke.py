@@ -36,7 +36,7 @@ Phases, each printing a line; any failure exits non-zero:
    episodes: finite aggregates, ``vo_pred_std_mean > 0``, steps + 1
    launches.  Then the rnd step's time, a profiler breakdown, and one rnd
    step held against the CPU on the same dropout masks (mode actions);
-5. steady-state VO: ``VOEnsemble.predict_step_cached`` at batch 512 with a
+5. steady-state VO: ``VOEnsemble.step`` at batch 512 with a
    70/15/15 forward/left/right action mix in fp32, bf16, fp32 with the int8
    feature cache and bf16 with it: ms/step, device ms, frame-pairs/s, peak
    memory and the cache's bytes per frame; the int8 deltas within 0.05 of
@@ -929,14 +929,14 @@ def phase_steady_vo(dev, card):
         def step():
             rgb, depth = frames[state["i"] % 2]
             state["i"] += 1
-            delta, state["feats"] = vo.predict_step_cached(state["feats"], rgb, depth, actions)
+            delta, _std, state["feats"] = vo.step(state["feats"], rgb, depth, actions)
             return delta
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ms = _time_ms(step, iters, warmup=2)
         name = f"{precision}+{cache_dtype}"
-        prof = _profile(f"predict_step_cached at B={batch} {name}", step, iters=2)
+        prof = _profile(f"VOEnsemble.step at B={batch} {name}", step, iters=2)
         delta = step()
         torch.cuda.synchronize()
         feats = state["feats"]
@@ -950,14 +950,14 @@ def phase_steady_vo(dev, card):
                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
                "cache_bytes_per_frame": feats[0].numel() * feats.element_size()}
         out[name] = rec
-        _log("steady", f"predict_step_cached B={batch} {name} 70/15/15: {ms:.3f} ms/step "
+        _log("steady", f"VOEnsemble.step B={batch} {name} 70/15/15: {ms:.3f} ms/step "
                        f"(device {rec['device_ms']} ms), {rec['frame_pairs_per_s']:.2f} "
                        f"frame-pairs/s, peak {rec['peak_gib']:.2f} GiB, cache "
                        f"{rec['cache_bytes_per_frame']} B a frame on {card}")
         # one fixed step, frames[0] cached -> frames[1], for the int8 checks
         # (kept small and off the card: the next configs' peaks stay their own)
-        delta, pack = vo.predict_step_cached(frame_features_packed(*frames[0], cfg),
-                                             *frames[1], actions)
+        delta, _std, pack = vo.step(frame_features_packed(*frames[0], cfg), *frames[1],
+                                    actions)
         fixed[name] = (delta, pack[:INT8_PACK_ROWS].cpu())
         del vo, state, feats, delta, pack
 
@@ -1407,7 +1407,7 @@ def _rl_step_vs_cpu(dev, trainer, tag="rl"):
                                                r.masks[0].to(device),
                                                update_stats=trainer.update_stats)
         feats = frame_features_packed(obs0["rgb"], obs0["depth"], vo.cfg)
-        delta, _ = vo.predict_step_cached(feats, obs1["rgb"], obs1["depth"], actions_np)
+        delta, _std, _ = vo.step(feats, obs1["rgb"], obs1["depth"], actions_np)
         goal, polar = propagate_goal(pointgoal_polar2cartesian(obs0["pointgoal_with_gps_compass"]),
                                      delta, 1.0 - r.masks[1].to(device),
                                      obs1["pointgoal_with_gps_compass"])

@@ -9,11 +9,11 @@ the episode-start ``pointgoal`` (no GPS/compass):
 - on the first step of an episode the polar ``pointgoal`` reading seeds
   the cartesian goal and the policy acts on it directly;
 - every later step propagates the goal through the VO delta of the
-  (previous, current) frame pair and the previous action: in det mode
-  through ``predict_step_cached`` with the frame features cached across
-  steps (one ``bin_counts`` a step, one more on the first VO step for the
-  previous frame), in rnd mode through ``predict_rnd_packed`` on the same
-  cache with the agent's generator, or through a ``vo_fn`` hook;
+  (previous, current) frame pair and the previous action, through
+  ``VOEnsemble.step`` with the frame features cached across steps (one
+  ``bin_counts`` a step, one more on the first VO step for the previous
+  frame; rnd mode draws from the agent's generator), or through a
+  ``vo_fn`` hook;
 - once the policy emits STOP the agent stays STOP for the episode.
 
 The agent runs on ``device`` (``None``: the card); ``generator`` (on that
@@ -79,17 +79,10 @@ class PointNavVOAgent:
             delta, _std = self.vo_fn(prev_rgb, prev_depth, rgb, depth,
                                      self._prev_action[:, 0], observations)
             return torch.as_tensor(delta, dtype=torch.float32, device=self.device)
-        actions_np = self._prev_action_np
         if self._feats is None:  # the first VO step: the previous frame's, once
             self._feats = frame_features_packed(prev_rgb, prev_depth, self.vo.cfg)
-        if self.vo.cfg.mode == "det":
-            delta, self._feats = self.vo.predict_step_cached(self._feats, rgb, depth,
-                                                             actions_np)
-            return delta
-        cur = frame_features_packed(rgb, depth, self.vo.cfg)
-        delta, _std = self.vo.predict_rnd_packed(torch.cat([self._feats, cur], dim=-1),
-                                                 actions_np, self.generator)
-        self._feats = cur
+        delta, _std, self._feats = self.vo.step(self._feats, rgb, depth,
+                                                self._prev_action_np, self.generator)
         return delta
 
     @torch.no_grad()

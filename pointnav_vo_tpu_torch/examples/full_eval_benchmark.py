@@ -15,7 +15,7 @@ scripted envs:
 2. the envs step on the host with the greedy goal rule;
 3. the new frame ships as uint8 rgb and float16 depth (habitat's dtypes;
    the previous frame's features stay cached on the device);
-4. VO: ``predict_step_cached`` (the new frame's features, ``bin_counts``
+4. VO: ``VOEnsemble.step`` (the new frame's features, ``bin_counts``
    once, and each sample's own expert, bf16);
 5. the goal is dead-reckoned (``propagate_goal``) through the ground-truth
    deltas, so the constant weights do not steer the episodes.
@@ -131,7 +131,7 @@ def eval_loop(envs, env_cfg: EnvConfig, ensemble: VOEnsemble, policy, steps: int
         timing["ship"] += time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        delta, feats = ensemble.predict_step_cached(feats, new_rgb, new_depth, actions)
+        delta, _std, feats = ensemble.step(feats, new_rgb, new_depth, actions)
         gt = torch.from_numpy(np.stack([i["gt_delta"] for i in infos])).to(device)
         reset = torch.from_numpy(dones.astype(np.float32)).to(device)[:, None]
         sensor = torch.from_numpy(new_obs[GOAL_KEY]).to(device)
@@ -166,7 +166,7 @@ def chained_step(ensemble: VOEnsemble, policy, state, actions_np, chain: int = C
         logits, _value, hidden = policy({"depth": depth, GOAL_KEY: goal_polar}, hidden,
                                         prev_a, masks)
         a = mode_action(logits)
-        delta, feats = ensemble.predict_step_cached(feats, rgb, depth, actions_np)
+        delta, _std, feats = ensemble.step(feats, rgb, depth, actions_np)
         goal_cart, goal_polar = propagate_goal(goal_cart, delta, masks * 0.0, goal_polar)
         acc = acc + delta.sum() + a.float().sum()
     return acc

@@ -5,7 +5,7 @@
 
 At the bench configuration (``BENCH_BATCH`` 512, 341x192, bf16, a 70 %
 forward mix, ``default_rng(0)`` inputs, every weight 0.01) each stage of
-``VOEnsemble.predict_step_cached`` runs alone:
+``VOEnsemble.step`` runs alone:
 
 1. ``frame_features_packed`` (cast, discretized depth, top-down, pack);
 2. ``top_down_view_batch`` with the ``bin_counts`` kernel, and with its
@@ -14,7 +14,7 @@ forward mix, ``default_rng(0)`` inputs, every weight 0.01) each stage of
 3. each expert's row selection (``index_select``, the port's form of the
    one-hot einsums) on the packed pair;
 4. the expert forwards on pre-sliced contiguous rows (no selection);
-5. the full ``predict_step_cached``.
+5. the full ``VOEnsemble.step``.
 
 Each stage is ``BENCH_ITERS`` back-to-back calls timed by CUDA events with
 one synchronize at the end; on the line before, the device time of the
@@ -160,7 +160,7 @@ def profile(batch: int, iters: int, device, h: int = 192, w: int = 341) -> Dict:
                             lambda: expert_forwards(ensemble, subs, actions), batch, iters,
                             device, "pairs")
     rec["full"] = timed("FULL fused step (predict_step_cached)",
-                        lambda: ensemble.predict_step_cached(feats, rgb, depth, actions)[0],
+                        lambda: ensemble.step(feats, rgb, depth, actions)[0],
                         batch, iters, device, "pairs")
     rec["bin_counts_launches"] = None
     if device.type == "cuda":

@@ -84,13 +84,8 @@ def fused_vo_act_step(policy, vo, prev_feats, cur_rgb, cur_depth, actions_np,
     ``vo.predict``, ``goal``, ``policy`` and ``pose``.
     """
     with TRACER.span("eval_step"):
-        cur_feats = frame_features_packed(cur_rgb, cur_depth, vo.cfg)
-        obs = torch.cat([prev_feats, cur_feats], dim=-1)
-        if vo.cfg.mode == "det":
-            delta = vo.predict_packed(obs, actions_np)
-            std = torch.zeros_like(delta)
-        else:
-            delta, std = vo.predict_rnd_packed(obs, actions_np, generator, vo_masks)
+        delta, std, cur_feats = vo.step(prev_feats, cur_rgb, cur_depth, actions_np,
+                                        generator, vo_masks)
         with TRACER.span("goal"):
             goal_cart, polar = propagate_goal(goal_cart, delta, reset_mask, sensor_polar)
         with TRACER.span("policy"):

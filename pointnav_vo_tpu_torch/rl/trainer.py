@@ -163,14 +163,9 @@ class DDPPOTrainer:
                 if self._vo_feats is None:  # the first frame's, once
                     self._vo_feats = frame_features_packed(prev_obs["rgb"], prev_obs["depth"],
                                                            self.vo.cfg)
-                if self.vo.cfg.mode == "det":
-                    delta, self._vo_feats = self.vo.predict_step_cached(
-                        self._vo_feats, new_obs["rgb"], new_obs["depth"], actions_np)
-                else:
-                    cur = frame_features_packed(new_obs["rgb"], new_obs["depth"], self.vo.cfg)
-                    delta, _std = self.vo.predict_rnd_packed(
-                        torch.cat([self._vo_feats, cur], dim=-1), actions_np, self.generator)
-                    self._vo_feats = cur
+                delta, _std, self._vo_feats = self.vo.step(
+                    self._vo_feats, new_obs["rgb"], new_obs["depth"], actions_np,
+                    self.generator)
             self.goal_cart, polar = propagate_goal(self.goal_cart, delta, reset,
                                                    new_obs[GOAL_KEY])
         return polar

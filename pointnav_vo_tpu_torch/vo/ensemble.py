@@ -1,9 +1,10 @@
 """Action-conditioned VO ensemble (counterpart of ``vo/ensemble.py``).
 
 Three experts (forward, left, right; :data:`common.VO_EXPERT_ACTIONS`)
-regress the SE(2) delta between two frames.  Each frame's features are
-computed once (:func:`frame_features_packed`) and the previous frame's are
-reused on the next step.  Every sample runs only its own expert: the host
+regress the SE(2) delta between two frames.  :meth:`VOEnsemble.step` is
+the VO step of every loop: each frame's features are computed once
+(:func:`frame_features_packed`) and the previous frame's are reused on the
+next step.  Every sample runs only its own expert: the host
 groups the rows by action, and each non-empty group is gathered with
 ``index_select``, run, and written back with ``index_copy_``.  GroupNorm is
 per sample, so grouping does not change any result.
@@ -294,22 +295,32 @@ class VOEnsemble:
         return cls(cfg, [load_vo_checkpoint(ckpt_paths[name], ACT_NAME2IDX[name])
                          for name in ("forward", "left", "right")], device=device)
 
+    def _own_experts(self, obs_pairs: torch.Tensor, actions_np, run,
+                     passes: Tuple[int, ...] = ()) -> torch.Tensor:
+        """The own-expert loop: each expert with rows (the span
+        ``vo.expert``) uploads its host row indices, selects and dequantizes
+        its rows of the packed pairs and writes ``run(expert, sub, idx)``
+        ``[*passes, rows, 3]`` into those rows of a float32 ``[*passes, B,
+        3]`` output."""
+        out = torch.zeros(passes + (obs_pairs.shape[0], 3), dtype=torch.float32,
+                          device=obs_pairs.device)
+        for expert, rows in zip(self.experts, expert_rows(actions_np)):
+            if rows.size == 0:
+                continue
+            with TRACER.span("vo.expert"):
+                idx = h2d(rows, obs_pairs.device)
+                sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
+                out.index_copy_(len(passes), idx, run(expert, sub, idx).float())
+        return out
+
     @torch.no_grad()
     def predict_packed(self, obs_pairs: torch.Tensor, actions_np) -> torch.Tensor:
         """Det delta ``[B, 3]`` (float32) of packed pairs ``[B, H, W, 2C]``;
         each sample runs the expert of its host action (the span
         ``vo.predict``, and ``vo.expert`` for each expert with rows)."""
         with TRACER.span("vo.predict"):
-            out = torch.zeros((obs_pairs.shape[0], 3), dtype=torch.float32,
-                              device=obs_pairs.device)
-            for expert, rows in zip(self.experts, expert_rows(actions_np)):
-                if rows.size == 0:
-                    continue
-                with TRACER.span("vo.expert"):
-                    idx = h2d(rows, obs_pairs.device)
-                    sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
-                    out.index_copy_(0, idx, expert(sub).float())
-            return out
+            return self._own_experts(obs_pairs, actions_np,
+                                     lambda expert, sub, idx: expert(sub))
 
     def draw_masks(self, generator: torch.Generator, batch: int) -> DropoutMasks:
         """The keep masks of one rnd call, ``[rnd_mode_n, batch, flat]`` and
@@ -327,34 +338,44 @@ class VOEnsemble:
         are ``masks`` (see :meth:`draw_masks`) or drawn from ``generator``.
         Each expert's encoder runs once; its trunk runs all passes at once
         (the spans as :meth:`predict_packed`'s)."""
-        batch = obs_pairs.shape[0]
         if masks is None:
             if generator is None:
                 raise ValueError("rnd mode needs dropout masks or a generator")
-            masks = self.draw_masks(generator, batch)
-        k = self.cfg.rnd_mode_n
-        with TRACER.span("vo.predict"):
-            samples = torch.zeros((k, batch, 3), dtype=torch.float32, device=obs_pairs.device)
-            for expert, rows in zip(self.experts, expert_rows(actions_np)):
-                if rows.size == 0:
-                    continue
-                with TRACER.span("vo.expert"):
-                    idx = h2d(rows, obs_pairs.device)
-                    sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
-                    feats = expert.visual_encoder(sub).flatten(1)
-                    own = (masks[0].index_select(1, idx), masks[1].index_select(1, idx))
-                    samples.index_copy_(1, idx, expert.trunk(feats, own).float())
-            return pass_mean_std(samples)
+            masks = self.draw_masks(generator, obs_pairs.shape[0])
 
-    def predict(self, obs_pairs: torch.Tensor, actions_np,
-                generator: Optional[torch.Generator] = None):
-        """(delta, std) ``[B, 3]`` of packed pairs ``[B, H, W, 2C]``, each
-        sample through the expert of its host action: det mode's std is
-        zero; rnd mode draws its keep masks from ``generator``."""
+        def run(expert, sub, idx):
+            feats = expert.visual_encoder(sub).flatten(1)
+            return expert.trunk(feats, (masks[0].index_select(1, idx),
+                                        masks[1].index_select(1, idx)))
+
+        with TRACER.span("vo.predict"):
+            return pass_mean_std(self._own_experts(obs_pairs, actions_np, run,
+                                                   (self.cfg.rnd_mode_n,)))
+
+    def _predict(self, obs_pairs: torch.Tensor, actions_np, generator=None, masks=None):
+        """(delta, std) ``[B, 3]`` of packed pairs in the config's mode: det's
+        std is zero; rnd's keep masks are ``masks`` or drawn from
+        ``generator``."""
         if self.cfg.mode == "det":
             delta = self.predict_packed(obs_pairs, actions_np)
             return delta, torch.zeros_like(delta)
-        return self.predict_rnd_packed(obs_pairs, actions_np, generator)
+        return self.predict_rnd_packed(obs_pairs, actions_np, generator, masks)
+
+    @torch.no_grad()
+    def step(self, prev_feats: torch.Tensor, rgb: torch.Tensor, depth: torch.Tensor,
+             actions_np, generator: Optional[torch.Generator] = None,
+             masks: Optional[DropoutMasks] = None):
+        """The VO step of every loop: the new frame's packed features (the
+        span ``features``), paired with the cached previous frame's
+        ``prev_feats``, through each sample's own expert in the config's
+        mode.  Returns (delta ``[B, 3]``, std ``[B, 3]``, cur_feats); det's
+        std is zero, rnd's keep masks are ``masks`` or drawn from
+        ``generator``.  Feed ``cur_feats`` (in the cache's dtype) back on
+        the next call."""
+        cur_feats = frame_features_packed(rgb, depth, self.cfg)
+        delta, std = self._predict(torch.cat([prev_feats, cur_feats], dim=-1), actions_np,
+                                   generator, masks)
+        return delta, std, cur_feats
 
     @torch.no_grad()
     def compute_local_delta_states_from_vo(self, prev_rgb, prev_depth, cur_rgb, cur_depth,
@@ -367,20 +388,7 @@ class VOEnsemble:
         cur = frame_features(cur_rgb, cur_depth, self.cfg)
         obs = torch.cat([pack_frame_features(prev, self.cfg),
                          pack_frame_features(cur, self.cfg)], dim=-1)
-        delta, std = self.predict(obs, actions_np, generator)
+        delta, std = self._predict(obs, actions_np, generator)
         tdv = (torch.cat([prev["top_down_view"], cur["top_down_view"]], dim=-1)
                if "top_down_view" in prev else None)
         return delta, std, {"ego_top_down_view": tdv}
-
-    @torch.no_grad()
-    def predict_step_cached(self, prev_feats: torch.Tensor, cur_rgb: torch.Tensor,
-                            cur_depth: torch.Tensor, actions_np):
-        """Steady-state det step: features of the new frame only, paired with
-        the cached previous ones.  Returns (delta ``[B, 3]``, cur_feats);
-        feed ``cur_feats`` (in the cache's dtype) back on the next call."""
-        if self.cfg.mode != "det":
-            raise ValueError("predict_step_cached is the det step; rnd mode runs "
-                             "predict_rnd_packed")
-        cur_feats = frame_features_packed(cur_rgb, cur_depth, self.cfg)
-        obs = torch.cat([prev_feats, cur_feats], dim=-1)
-        return self.predict_packed(obs, actions_np), cur_feats

@@ -297,9 +297,10 @@ def test_profile_stages_compose_the_full_step(stage_setup):
     assert torch.equal(feats[..., -1], view.to(cfg.dtype))
     # stage 5 is the pair of stage 1's outputs through predict_packed
     pair = torch.cat([prev_feats, feats], dim=-1)
-    full, cur = ens.predict_step_cached(prev_feats, rgb, depth, actions)
+    full, std, cur = ens.step(prev_feats, rgb, depth, actions)
     want = ens.predict_packed(pair, actions)
     assert torch.equal(cur, feats) and torch.equal(full, want)
+    assert not bool(std.any())
     # stages 3 and 4: each expert's rows, and its deltas on them
     subs = tprof.select_rows(pair, actions)
     rows = [r for r in tprof.expert_rows(actions) if r.size]

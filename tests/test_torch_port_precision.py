@@ -176,8 +176,7 @@ def _port_det(sds, frames, precision, cache_dtype):
     cfg = _tcfg(precision, cache_dtype)
     ens = TEnsemble(cfg, sds, device="cpu")
     f0 = tens_lib.frame_features_packed(torch.from_numpy(r0), torch.from_numpy(d0), cfg)
-    delta, f1 = ens.predict_step_cached(f0, torch.from_numpy(r1), torch.from_numpy(d1),
-                                        ACTIONS)
+    delta, _std, f1 = ens.step(f0, torch.from_numpy(r1), torch.from_numpy(d1), ACTIONS)
     assert f1.dtype == f0.dtype  # the returned cache keeps the cache's dtype
     return delta.numpy()
 
@@ -276,12 +275,8 @@ def test_int8_cache_deltas_near_native(precision, mode):
         cfg = _tcfg(precision, cache_dtype, mode=mode, dropout_p=0.2, rnd_mode_n=4)
         ens = TEnsemble(cfg, experts=_const_experts(cfg), device="cpu")
         f0 = tens_lib.frame_features_packed(rgb[0], depth[0], cfg)
-        if mode == "det":
-            delta, f1 = ens.predict_step_cached(f0, rgb[1], depth[1], ACTIONS)
-        else:
-            f1 = tens_lib.frame_features_packed(rgb[1], depth[1], cfg)
-            delta, _ = ens.predict_rnd_packed(torch.cat([f0, f1], -1), ACTIONS,
-                                              torch.Generator().manual_seed(1))
+        delta, _std, f1 = ens.step(f0, rgb[1], depth[1], ACTIONS,
+                                   torch.Generator().manual_seed(1))
         assert f1.dtype == (torch.int8 if cache_dtype == "int8" else cfg.dtype)
         out[cache_dtype] = delta.numpy()
     assert np.isfinite(out["int8"]).all()

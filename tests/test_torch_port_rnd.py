@@ -164,6 +164,26 @@ def test_rnd_masks_come_from_the_generator():
         tens.predict_rnd_packed(obs, ACTIONS)
 
 
+@pytest.mark.parametrize("mode", ["det", "rnd"])
+def test_step_is_the_pair_primitive_on_the_cached_pair(mode):
+    """``VOEnsemble.step`` is the mode's pair primitive on ``cat(prev,
+    cur)``, bit for bit on the same masks; it returns the new frame's
+    packed features, and det's std is exactly 0."""
+    _, tens = _ensembles(mode=mode, dropout_p=0.3, k=3)
+    pr, pd, cr, cd = (torch.from_numpy(a) for a in _frames(ACTIONS.size, seed=13))
+    prev = tens_lib.frame_features_packed(pr, pd, tens.cfg)
+    masks = tens.draw_masks(torch.Generator().manual_seed(14), ACTIONS.size)
+    delta, std, cur = tens.step(prev, cr, cd, ACTIONS, masks=masks)
+    assert torch.equal(cur, tens_lib.frame_features_packed(cr, cd, tens.cfg))
+    pair = torch.cat([prev, cur], dim=-1)
+    if mode == "det":
+        want = (tens.predict_packed(pair, ACTIONS), torch.zeros(ACTIONS.size, 3))
+    else:
+        want = tens.predict_rnd_packed(pair, ACTIONS, masks=masks)
+        assert float(std.min()) > 0.0
+    assert torch.equal(delta, want[0]) and torch.equal(std, want[1])
+
+
 def test_train_mode_applies_no_dropout_by_itself():
     """``.train()`` does not switch the trunk's Dropout entries on: only
     keep masks do, so no dropout is ever applied twice."""
