@@ -1,4 +1,7 @@
-"""CUDA graphs for a policy's ``_features`` (``models/policy.py::_ActorCritic``).
+"""CUDA graphs for a policy's ``_features`` (``models/policy.py::_ActorCritic``),
+and what the VO experts' graphs (``vo/ensemble.py::ExpertGraphs``) share with
+them: the module tree a call reads (:class:`_Tree`), the rule that keeps a
+call eager (:func:`eager_reason`) and the capture (:func:`capture`).
 
 One step of the policy's visual encoder is a thousand or so small kernels
 (SE-ResNeXt101: 104 convs, 104 GroupNorms, 33 SE gates), whose launches
@@ -84,12 +87,12 @@ class _Tree:
         return tuple(map(_data_ptr, self.tensors)) + tuple(map(_dtype, self.tensors))
 
 
-def eager_reason(tree: _Tree, inputs: Sequence[torch.Tensor], seq: bool,
-                 update_stats: bool) -> Optional[str]:
-    """Why a call of ``_features`` over ``tree``'s modules on ``inputs``
-    must run eagerly (``"sequence"``, ``"update_stats"``, ``"grad"``,
-    ``"hook"``, ``"device"`` or ``"capturing"``), or None where a graph may
-    run it."""
+def eager_reason(tree: _Tree, inputs: Sequence[torch.Tensor], seq: bool = False,
+                 update_stats: bool = False) -> Optional[str]:
+    """Why a call of ``tree``'s modules (a policy's ``_features``, the VO
+    experts) on ``inputs`` must run eagerly (``"sequence"``,
+    ``"update_stats"``, ``"grad"``, ``"hook"``, ``"device"`` or
+    ``"capturing"``), or None where a graph may run it."""
     if seq:
         return "sequence"
     if update_stats:
@@ -107,7 +110,7 @@ def eager_reason(tree: _Tree, inputs: Sequence[torch.Tensor], seq: bool,
 
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    inputs: List[torch.Tensor]  # the static copies the graph reads
+    inputs: List[torch.Tensor]  # the static tensors the graph reads
     output: torch.Tensor
     counts: Dict[str, int]  # what the captured call added to the tracer's counters
 
@@ -164,8 +167,8 @@ class FeatureGraphs:
             TRACER.count("policy_graph_eager")
             return features(*inputs)
         if how == "capture":
-            with torch.cuda.device(dev):
-                g = self._capture(features, inputs, dev)
+            # copies with real values: the warm-up runs on them
+            g = capture(features, [t.clone() for t in inputs], self.pools)
             self.keep(key, g)
             TRACER.count("policy_graph_captures")
         else:
@@ -177,28 +180,34 @@ class FeatureGraphs:
             TRACER.count(name, n)
         return g.output
 
-    def _capture(self, features, inputs: List[torch.Tensor], dev: torch.device) -> _Graph:
-        """Warm up on a side stream and capture ``features`` over copies of
-        ``inputs``; the tracer's counters come out as they went in, and the
-        graph keeps what the captured call added to them."""
-        counters = TRACER.counters
-        before = dict(counters)
-        static = [t.clone() for t in inputs]  # real values: the warm-up runs on them
+
+def capture(fn: Callable[..., torch.Tensor], static: List[torch.Tensor],
+            pools: Dict[int, tuple]) -> _Graph:
+    """Warm up on a side stream, then capture ``fn(*static)`` on the current
+    stream of ``static``'s card, into the memory pool that ``pools`` (card
+    index -> pool) keeps for it.  ``static`` holds real values (the warm-up
+    runs on them), and the graph reads it by address.  The tracer's
+    counters come out as they went in, and the graph keeps what the
+    captured call added to them."""
+    dev = static[0].device
+    counters = TRACER.counters
+    before = dict(counters)
+    with torch.cuda.device(dev):
+        pool = pools.get(dev.index)
+        if pool is None:
+            pool = pools[dev.index] = torch.cuda.graph_pool_handle()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
-                features(*static)
+                fn(*static)
         torch.cuda.current_stream(dev).wait_stream(side)
         warm = dict(counters)
-        pool = self.pools.get(dev.index)
-        if pool is None:
-            pool = self.pools[dev.index] = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            output = features(*static)
-        counts = {k: v - warm.get(k, 0) for k, v in counters.items() if v != warm.get(k, 0)}
-        for k in [k for k in counters if k not in before]:
-            del counters[k]
-        counters.update(before)
-        return _Graph(graph, static, output, counts)
+            output = fn(*static)
+    counts = {k: v - warm.get(k, 0) for k, v in counters.items() if v != warm.get(k, 0)}
+    for k in [k for k in counters if k not in before]:
+        del counters[k]
+    counters.update(before)
+    return _Graph(graph, static, output, counts)

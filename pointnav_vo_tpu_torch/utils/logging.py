@@ -207,9 +207,9 @@ def h2d(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     under ``host_syncs`` and ``h2d_bytes`` on every device, and timed as the
     span ``sync.h2d``.
 
-    The hot paths' only blocking uploads are the eval step's expert row
-    indices (``vo/ensemble.py``) and the first upload of each constant
-    (:func:`device_const`); the train step's batch and buckets go through
+    The hot paths' only blocking upload is the first upload of each
+    constant (:func:`device_const`); the eval step's expert row indices
+    (``vo/ensemble.py``) and the train step's batch and buckets go through
     :func:`h2d_async`."""
     t = torch.as_tensor(a, dtype=dtype)
     TRACER.count("host_syncs")

@@ -5,9 +5,11 @@ regress the SE(2) delta between two frames.  :meth:`VOEnsemble.step` is
 the VO step of every loop: each frame's features are computed once
 (:func:`frame_features_packed`) and the previous frame's are reused on the
 next step.  Every sample runs only its own expert: the host
-groups the rows by action, and each non-empty group is gathered with
-``index_select``, run, and written back with ``index_copy_``.  GroupNorm is
-per sample, so grouping does not change any result.
+groups the rows by action and uploads them in one copy without a host
+sync, and each non-empty group is gathered with ``index_select``, run, and
+written back with ``index_copy_``.  GroupNorm is per sample, so grouping
+does not change any result.  On the card an expert's run over its rows is
+replayed from a CUDA graph keyed by the row count (:class:`ExpertGraphs`).
 
 Two modes, as in the JAX package: ``det`` gives one delta per sample;
 ``rnd`` gives the mean and the population std over ``rnd_mode_n`` dropout
@@ -30,12 +32,14 @@ the training batches of ``vo/engine.py``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import VO_EXPERT_ACTIONS, resolve_device
+from pointnav_vo_tpu_torch.models.feature_graphs import _Graph, _Tree, capture, eager_reason
 from pointnav_vo_tpu_torch.models.vo_cnn import (
     DROPOUT_P,
     VOCNN,
@@ -47,7 +51,7 @@ from pointnav_vo_tpu_torch.models.vo_cnn import (
 from pointnav_vo_tpu_torch.ops.depth import discretize_depth
 from pointnav_vo_tpu_torch.ops.topdown import TopDownParams, top_down_view_batch
 from pointnav_vo_tpu_torch.ops.transforms import TRANSFORMS, apply_obs_transform
-from pointnav_vo_tpu_torch.utils.logging import TRACER, device_const, h2d
+from pointnav_vo_tpu_torch.utils.logging import TRACER, device_const, h2d_async
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,8 +175,22 @@ def dequantize_rows(rows: torch.Tensor, cfg: VOInferenceConfig) -> torch.Tensor:
     times 1/127, both in the compute dtype; any other cache as it is."""
     if rows.dtype != torch.int8:
         return rows
+    return _dequantize(rows, cfg)
+
+
+def _dequantize(rows: torch.Tensor, cfg: VOInferenceConfig,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     # a 0-dim host tensor: a scalar operand, no upload
-    return rows.to(cfg.dtype) * torch.tensor(1.0 / 127.0, dtype=cfg.dtype)
+    return torch.mul(rows.to(cfg.dtype), torch.tensor(1.0 / 127.0, dtype=cfg.dtype), out=out)
+
+
+def select_rows(pairs: torch.Tensor, idx: torch.Tensor, cfg: VOInferenceConfig,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dequantize_rows(pairs.index_select(0, idx), cfg)``, written into
+    ``out`` (``[len(idx), ...]`` in that dtype) where given."""
+    if pairs.dtype != torch.int8:
+        return torch.index_select(pairs, 0, idx, out=out)
+    return _dequantize(pairs.index_select(0, idx), cfg, out)
 
 
 def frame_features_packed(rgb: torch.Tensor, depth: torch.Tensor,
@@ -247,6 +265,14 @@ def expert_rows(actions_np) -> list:
     return [np.nonzero(expert_idx == e)[0] for e in range(len(VO_EXPERT_ACTIONS))]
 
 
+def packed_rows(actions_np) -> Tuple[np.ndarray, list]:
+    """:func:`expert_rows` as one int64 array, the experts' rows one after
+    the other in expert order, and each expert's ``(start, stop)`` in it."""
+    rows = expert_rows(actions_np)
+    stops = np.cumsum([r.size for r in rows]).tolist()
+    return np.concatenate(rows).astype(np.int64, copy=False), list(zip([0] + stops[:-1], stops))
+
+
 def pass_mean_std(samples: torch.Tensor):
     """Mean and population std over the pass axis of ``[k, ...]``, both
     taken about the first pass: equal passes give that pass and a std of
@@ -254,6 +280,85 @@ def pass_mean_std(samples: torch.Tensor):
     first = samples[0]
     mean = first + (samples - first).mean(0)
     return mean, (samples - mean).square().mean(0).sqrt()
+
+
+# the part of an expert that its graph runs, by mode: det the whole expert,
+# rnd the encoder (the trunk runs eagerly, with each call's dropout masks)
+_GRAPHED = {"det": lambda expert, x: expert(x),
+            "rnd": lambda expert, x: expert.visual_encoder(x).flatten(1)}
+
+
+class ExpertGraphs:
+    """An ensemble's CUDA graphs of its experts, one per ``(mode, expert,
+    row count)``, each captured the first time its key is met and kept.
+
+    An expert over ``n`` rows is some 150 kernels, whose launches cost the
+    host far more than their work costs the card, and the rows an expert
+    gets change every step.  A graph keyed by the exact count replays the
+    kernels an eager call on those rows would launch, in the same order,
+    and adds no padded rows; the keys are bounded (3 x B for a batch of B).
+
+    Every graph reads one staging tensor, ``[B, H, W, 2C]`` in the rows'
+    dtype: the graph of ``n`` rows is captured on its first ``n`` rows, and
+    a call gathers its rows there (:func:`select_rows`) before the replay,
+    which stream order keeps apart from the previous expert's.  The graphs
+    share one memory pool per card: a replay may overwrite any graph's
+    output, so a call consumes its output before the next replay.
+
+    A call may replay where :func:`eager_reason` finds nothing against it
+    (a CUDA input, gradients off, no forward hook in an expert, no stream
+    capture running).  The graphs are dropped where the pairs' frame shape,
+    the rows' dtype, the card, inference mode or the address or dtype of
+    an expert's parameter or buffer changes (``.to()``, a new ``.data``),
+    and where a larger batch needs a larger staging tensor; an in-place
+    write (``load_state_dict``) is read by the next replay.  A copy or a
+    pickle starts with none."""
+
+    def __init__(self):
+        self.graphs: Dict[tuple, _Graph] = {}
+        self.pools: Dict[int, tuple] = {}  # card index -> the graphs' memory pool
+        self.staging: Optional[torch.Tensor] = None
+        self.key: Optional[tuple] = None  # what every graph was captured under
+        self._tree: Optional[_Tree] = None
+
+    def __reduce__(self):
+        return ExpertGraphs, ()
+
+    def eager_reason(self, experts: Sequence[VOCNN], pairs: torch.Tensor,
+                     cfg: VOInferenceConfig) -> Optional[str]:
+        """Why this call's experts must run eagerly (:func:`eager_reason`), or
+        None, the graphs and the staging tensor then ready for the rows of
+        ``pairs`` (:func:`dequantize_rows`'s dtype)."""
+        if self._tree is None or not self._tree.current(experts):
+            self._tree = _Tree(experts)
+        reason = eager_reason(self._tree, [pairs])
+        if reason is not None:
+            return reason
+        dtype = cfg.dtype if pairs.dtype == torch.int8 else pairs.dtype
+        key = (tuple(pairs.shape[1:]), dtype, pairs.device.index,
+               torch.is_inference_mode_enabled(), self._tree.weights())
+        if key != self.key or self.staging.shape[0] < pairs.shape[0]:
+            self.graphs.clear()
+            self.key = key
+            self.staging = torch.empty(pairs.shape, dtype=dtype, device=pairs.device)
+        return None
+
+    def run(self, fn, key: tuple, pairs: torch.Tensor, idx: torch.Tensor,
+            cfg: VOInferenceConfig) -> torch.Tensor:
+        """``fn`` of the rows ``idx`` of ``pairs``, by a capture or a replay
+        of the graph of ``key``, for a call :meth:`eager_reason` let
+        through."""
+        x = select_rows(pairs, idx, cfg, out=self.staging[:idx.shape[0]])
+        g = self.graphs.get(key)
+        if g is None:
+            g = self.graphs[key] = capture(fn, [x], self.pools)
+            TRACER.count("vo_graph_captures")
+        else:
+            TRACER.count("vo_graph_replays")
+        g.graph.replay()
+        for name, n in g.counts.items():
+            TRACER.count(name, n)
+        return g.output
 
 
 class VOEnsemble:
@@ -282,6 +387,7 @@ class VOEnsemble:
                              f"{cfg.model_name!r} cannot be one")
         check_compute_dtype(experts, cfg)
         self.experts = [m.to(self.device).eval() for m in experts]
+        self._graphs = ExpertGraphs()
 
     @classmethod
     def from_torch_checkpoints(cls, cfg: VOInferenceConfig, ckpt_paths: Mapping[str, str],
@@ -295,22 +401,37 @@ class VOEnsemble:
         return cls(cfg, [load_vo_checkpoint(ckpt_paths[name], ACT_NAME2IDX[name])
                          for name in ("forward", "left", "right")], device=device)
 
-    def _own_experts(self, obs_pairs: torch.Tensor, actions_np, run,
+    def _own_experts(self, obs_pairs: torch.Tensor, actions_np, mode: str, tail=None,
                      passes: Tuple[int, ...] = ()) -> torch.Tensor:
-        """The own-expert loop: each expert with rows (the span
-        ``vo.expert``) uploads its host row indices, selects and dequantizes
-        its rows of the packed pairs and writes ``run(expert, sub, idx)``
-        ``[*passes, rows, 3]`` into those rows of a float32 ``[*passes, B,
-        3]`` output."""
+        """The own-expert loop.  The experts' host row indices go up in one
+        upload without a host sync (:func:`packed_rows`, ``h2d_async``); each
+        expert with rows (the span ``vo.expert``) runs its part
+        (:data:`_GRAPHED` of ``mode``) on its rows of the packed pairs,
+        replayed from a graph where :class:`ExpertGraphs` allows and
+        eagerly otherwise (counted under ``vo_graph_eager``), then
+        ``tail(expert, y, idx)`` where given, and writes the ``[*passes,
+        rows, 3]`` result into those rows of a float32 ``[*passes, B, 3]``
+        output."""
         out = torch.zeros(passes + (obs_pairs.shape[0], 3), dtype=torch.float32,
                           device=obs_pairs.device)
-        for expert, rows in zip(self.experts, expert_rows(actions_np)):
-            if rows.size == 0:
+        rows, spans = packed_rows(actions_np)
+        all_idx = h2d_async(rows, obs_pairs.device)
+        eager = self._graphs.eager_reason(self.experts, obs_pairs, self.cfg) is not None
+        part = _GRAPHED[mode]
+        for e, (expert, (start, stop)) in enumerate(zip(self.experts, spans)):
+            if start == stop:
                 continue
             with TRACER.span("vo.expert"):
-                idx = h2d(rows, obs_pairs.device)
-                sub = dequantize_rows(obs_pairs.index_select(0, idx), self.cfg)
-                out.index_copy_(len(passes), idx, run(expert, sub, idx).float())
+                idx = all_idx[start:stop]
+                if eager:
+                    TRACER.count("vo_graph_eager")
+                    y = part(expert, select_rows(obs_pairs, idx, self.cfg))
+                else:
+                    y = self._graphs.run(functools.partial(part, expert), (mode, e, stop - start),
+                                         obs_pairs, idx, self.cfg)
+                if tail is not None:
+                    y = tail(expert, y, idx)
+                out.index_copy_(len(passes), idx, y.float())
         return out
 
     @torch.no_grad()
@@ -319,8 +440,7 @@ class VOEnsemble:
         each sample runs the expert of its host action (the span
         ``vo.predict``, and ``vo.expert`` for each expert with rows)."""
         with TRACER.span("vo.predict"):
-            return self._own_experts(obs_pairs, actions_np,
-                                     lambda expert, sub, idx: expert(sub))
+            return self._own_experts(obs_pairs, actions_np, "det")
 
     def draw_masks(self, generator: torch.Generator, batch: int) -> DropoutMasks:
         """The keep masks of one rnd call, ``[rnd_mode_n, batch, flat]`` and
@@ -343,13 +463,12 @@ class VOEnsemble:
                 raise ValueError("rnd mode needs dropout masks or a generator")
             masks = self.draw_masks(generator, obs_pairs.shape[0])
 
-        def run(expert, sub, idx):
-            feats = expert.visual_encoder(sub).flatten(1)
+        def trunk(expert, feats, idx):
             return expert.trunk(feats, (masks[0].index_select(1, idx),
                                         masks[1].index_select(1, idx)))
 
         with TRACER.span("vo.predict"):
-            return pass_mean_std(self._own_experts(obs_pairs, actions_np, run,
+            return pass_mean_std(self._own_experts(obs_pairs, actions_np, "rnd", trunk,
                                                    (self.cfg.rnd_mode_n,)))
 
     def _predict(self, obs_pairs: torch.Tensor, actions_np, generator=None, masks=None):

@@ -285,23 +285,28 @@ EVAL_MIXES = {  # actions -> experts with rows (STOP runs the forward expert)
 @pytest.mark.parametrize("mode", ["det", "rnd"])
 @pytest.mark.parametrize("mix", list(EVAL_MIXES))
 def test_eval_step_counts_one_upload_per_expert_with_rows(mix, mode):
+    """A warmed step uploads every expert's rows in one copy without a host
+    sync, and each expert with rows runs in a ``vo.expert`` span (eagerly
+    on the CPU)."""
     actions, experts = EVAL_MIXES[mix]
     step = _eval_step(torch.device("cpu"), actions, mode)
     step()  # warm-up: the constants' first uploads
     tk.reset_launch_counts()
     for _ in range(2):
         step()
-    assert TRACER.counters["host_syncs"] == 2 * experts
+    assert TRACER.counters.get("host_syncs", 0) == 0
+    assert TRACER.counters["h2d_async"] == 2
     assert TRACER.counters["const_hits"] == 2 * EVAL_CONSTANTS
-    assert TRACER.counters["h2d_bytes"] == 2 * 8 * N  # every row's int64 index
+    assert TRACER.counters["h2d_async_bytes"] == 2 * 8 * N  # every row's int64 index
+    assert TRACER.counters["vo_graph_eager"] == 2 * experts
     calls = _counted(TRACER)
     assert calls == {"eval_step": 2, "features": 2, "vo.predict": 2, "vo.expert": 2 * experts,
-                     "sync.h2d": 2 * experts, "goal": 2, "policy": 2, "policy.encoder": 2,
+                     "goal": 2, "policy": 2, "policy.encoder": 2,
                      "policy.rnn": 2, "policy.heads": 2, "pose": 2}
     parents = {k: v["parents"] for k, v in TRACER.snapshot()["spans"].items()}
     assert parents == {"eval_step": [None], "features": ["eval_step"],
                        "vo.predict": ["eval_step"], "vo.expert": ["vo.predict"],
-                       "sync.h2d": ["vo.expert"], "goal": ["eval_step"],
+                       "goal": ["eval_step"],
                        "policy": ["eval_step"], "policy.encoder": ["policy"],
                        "policy.rnn": ["policy"], "policy.heads": ["policy"],
                        "pose": ["eval_step"]}
@@ -401,8 +406,9 @@ def test_eval_step_syncs_are_the_counted_ones_on_card(cuda, mix, mode):
     step = _eval_step(cuda, actions, mode)
     step()  # the first call's set-up (cuDNN plans, the kernel's build, the constants)
     counted, syncs, others = _sync_warnings(step)
-    assert counted == experts  # the row indices; the constants are cached
+    assert counted == 0  # the rows go up without a sync; the constants are cached
     assert sum(syncs.values()) == counted, (dict(syncs), others)
+    assert TRACER.counters["vo_graph_replays"] == 2 * experts  # the checked step's too
 
 
 @pytest.mark.cuda
