@@ -7,7 +7,7 @@ HWIO -> OIHW, dense ``(in, out)`` -> ``(out, in)``, GroupNorm ``scale`` ->
 ``weight``, RunningMeanAndVar ``(C,)`` stats -> ``(1, C, 1, 1)`` buffers;
 the LSTM and GRU matrices are stored in torch's layout already and pass
 through.
-It covers every backbone (a bottleneck's ``conv3``/``gn3`` at ``convs.6``
+It covers every ResNet backbone (a bottleneck's ``conv3``/``gn3`` at ``convs.6``
 and ``convs.7``, the SE gate's ``fc1``/``fc2`` at ``se.excite.0`` and
 ``se.excite.2``; a grouped kernel ``[kh, kw, I/g, O]`` takes the same
 transpose to torch's ``[O, I/g, kh, kw]``) and the act-embed model
@@ -43,6 +43,7 @@ from torch import nn
 
 from pointnav_vo_tpu_torch.io.checkpoint import load_checkpoint
 from pointnav_vo_tpu_torch.models.running_mean_var import RunningMeanAndVar
+from pointnav_vo_tpu_torch.models.swin import WindowAttention
 
 POLICY_PREFIX = "actor_critic."
 
@@ -375,8 +376,10 @@ def split_expert_variables(stacked: Mapping[str, Any], n_experts: int = 3) -> Li
 def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random weights drawn from ``generator`` (a CPU generator; build the
     module on the CPU, then move it): fan-in-scaled normal convs and linears,
-    unit GroupNorm, identity whitening, torch's uniform range for the LSTM
-    and the GRU."""
+    unit GroupNorm and LayerNorm, identity whitening, torch's uniform range
+    for the LSTM and the GRU, and Swin's relative-position bias tables
+    normal with std 0.02, as published (a table left at zero would leave the
+    bias path untested)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -384,7 +387,9 @@ def seeded_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, WindowAttention):
+                m.relative_position_bias_table.normal_(0.0, 0.02, generator=generator)
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
             elif isinstance(m, nn.Embedding):

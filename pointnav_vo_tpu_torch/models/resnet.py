@@ -1,7 +1,9 @@
 """GroupNorm ResNet family (counterpart of ``models/resnet.py``), NCHW:
 ``BasicBlock``, ``Bottleneck`` (expansion 4), ``ResNeXtBottleneck``
 (expansion 2), the squeeze-excitation gate, and the seven backbones of
-:data:`BACKBONES`.
+:data:`BACKBONES` that are ResNets.  :data:`BACKBONES` also registers Swin-B
+(``models/swin.py``): every model that takes a backbone by name reads this
+one registry.
 
 Submodule names follow the reference checkpoints, so their state dicts
 load with ``strict=True``: ``conv1.{0,1}`` (stem conv and GroupNorm),
@@ -22,7 +24,8 @@ Every GroupNorm uses eps=1e-6, flax's default, which the JAX package uses
 Compute runs in the input's dtype, the parameters stay in theirs, as flax's
 ``dtype=`` beside ``param_dtype=``: a bfloat16 input runs its convs and the
 SE gate in bfloat16 over float32 weights cast in the forward (gradients
-reach the float32 parameters through the cast), and GroupNorm takes its
+reach the float32 parameters through the cast; ``Conv2d`` and ``Linear``
+live in ``models/layers.py``), and GroupNorm takes its
 statistics and applies its affine in float32, then casts to bfloat16
 (flax's ``_normalize`` with ``force_float32_reductions``).  An input in the
 parameters' dtype runs exactly as plain ``nn.Conv2d``, ``nn.Linear`` and
@@ -37,25 +40,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointnav_vo_tpu_torch.models.layers import Conv2d, Linear
+from pointnav_vo_tpu_torch.models.swin import swin_b
 from pointnav_vo_tpu_torch.utils.logging import TRACER
 
 GN_EPS = 1e-6
 SE_REDUCTION = 16
-
-
-class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in the input's dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
-
-
-class Linear(nn.Linear):
-    """``nn.Linear`` computing in the input's dtype."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class GroupNorm(nn.GroupNorm):
@@ -235,4 +225,5 @@ BACKBONES = {
     "se_resnet50": se_resnet50,
     "se_resneXt50": se_resneXt50,
     "se_resneXt101": se_resneXt101,
+    "swin_b": swin_b,
 }

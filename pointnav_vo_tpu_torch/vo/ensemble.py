@@ -292,11 +292,12 @@ class ExpertGraphs:
     """An ensemble's CUDA graphs of its experts, one per ``(mode, expert,
     row count)``, each captured the first time its key is met and kept.
 
-    An expert over ``n`` rows is some 150 kernels, whose launches cost the
-    host far more than their work costs the card, and the rows an expert
-    gets change every step.  A graph keyed by the exact count replays the
-    kernels an eager call on those rows would launch, in the same order,
-    and adds no padded rows; the keys are bounded (3 x B for a batch of B).
+    An expert over ``n`` rows is some 150 kernels (a ResNet18; a Swin-B
+    several hundred), whose launches cost the host far more than their
+    work costs the card, and the rows an expert gets change every step.
+    A graph keyed by the exact count replays the kernels an eager call on
+    those rows would launch, in the same order, and adds no padded rows;
+    the keys are bounded (3 x B for a batch of B).
 
     Every graph reads one staging tensor, ``[B, H, W, 2C]`` in the rows'
     dtype: the graph of ``n`` rows is captured on its first ``n`` rows, and
