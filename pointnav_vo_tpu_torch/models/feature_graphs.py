@@ -1,7 +1,9 @@
 """CUDA graphs for a policy's ``_features`` (``models/policy.py::_ActorCritic``),
-and what the VO experts' graphs (``vo/ensemble.py::ExpertGraphs``) share with
+and what the VO experts' graphs (``vo/ensemble.py::ExpertGraphs``) and the
+VO frame features' (``vo/ensemble.py::frame_features_packed``) share with
 them: the module tree a call reads (:class:`_Tree`), the rule that keeps a
-call eager (:func:`eager_reason`) and the capture (:func:`capture`).
+call eager (:func:`eager_reason`), the capture (:func:`capture`) and, for
+the features, the cache (:meth:`FeatureGraphs.call`).
 
 One step of the policy's visual encoder is a thousand or so small kernels
 (SE-ResNeXt101: 104 convs, 104 GroupNorms, 33 SE gates), whose launches
@@ -37,7 +39,7 @@ from __future__ import annotations
 import collections
 import itertools
 import operator
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -111,7 +113,7 @@ def eager_reason(tree: _Tree, inputs: Sequence[torch.Tensor], seq: bool = False,
 class _Graph(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: List[torch.Tensor]  # the static tensors the graph reads
-    output: torch.Tensor
+    output: Any  # what the captured call returned: a tensor, or a tuple of them
     counts: Dict[str, int]  # what the captured call added to the tracer's counters
 
 
@@ -162,19 +164,27 @@ class FeatureGraphs:
         dev = inputs[0].device
         key = (tuple((t.shape, t.dtype) for t in inputs), compute_dtype, dev.index,
                torch.is_inference_mode_enabled(), tree.weights())
+        return self.call(features, key, inputs, "policy_graph")
+
+    def call(self, fn: Callable[..., Any], key, inputs: List[torch.Tensor], counter: str):
+        """``fn(*inputs)`` on the card: eagerly the first time ``key`` is met,
+        by a capture the second, by a replay later, counted under
+        ``<counter>_eager``, ``<counter>_captures`` and ``<counter>_replays``.
+        A replay's output is the graph's own: the next replay of any of
+        the cache's keys may overwrite it."""
         how, g = self.sight(key)
         if how == "eager":
-            TRACER.count("policy_graph_eager")
-            return features(*inputs)
+            TRACER.count(counter + "_eager")
+            return fn(*inputs)
         if how == "capture":
             # copies with real values: the warm-up runs on them
-            g = capture(features, [t.clone() for t in inputs], self.pools)
+            g = capture(fn, [t.clone() for t in inputs], self.pools)
             self.keep(key, g)
-            TRACER.count("policy_graph_captures")
+            TRACER.count(counter + "_captures")
         else:
             for s, t in zip(g.inputs, inputs):
                 s.copy_(t)
-            TRACER.count("policy_graph_replays")
+            TRACER.count(counter + "_replays")
         g.graph.replay()  # on the current stream of the card it was captured on
         for name, n in g.counts.items():
             TRACER.count(name, n)

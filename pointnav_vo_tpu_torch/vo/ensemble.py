@@ -4,7 +4,13 @@ Three experts (forward, left, right; :data:`common.VO_EXPERT_ACTIONS`)
 regress the SE(2) delta between two frames.  :meth:`VOEnsemble.step` is
 the VO step of every loop: each frame's features are computed once
 (:func:`frame_features_packed`) and the previous frame's are reused on the
-next step.  Every sample runs only its own expert: the host
+next step.  On the card the features' chain (the depth one-hot, the
+top-down view with its ``bin_counts`` launch, the 1/255 scale: some 120
+small kernels) replays from a CUDA graph, captured on the second call of
+its key and kept in one cache for the process; it runs eagerly on the CPU,
+for an input that requires grad and inside an outer capture.  The pack's
+``cat`` runs after the replay, so each call returns a fresh tensor.
+Every sample runs only its own expert: the host
 groups the rows by action and uploads them in one copy without a host
 sync, and each non-empty group is gathered with ``index_select``, run, and
 written back with ``index_copy_``.  GroupNorm is per sample, so grouping
@@ -39,7 +45,13 @@ import numpy as np
 import torch
 
 from pointnav_vo_tpu_torch.common import VO_EXPERT_ACTIONS, resolve_device
-from pointnav_vo_tpu_torch.models.feature_graphs import _Graph, _Tree, capture, eager_reason
+from pointnav_vo_tpu_torch.models.feature_graphs import (
+    FeatureGraphs,
+    _Graph,
+    _Tree,
+    capture,
+    eager_reason,
+)
 from pointnav_vo_tpu_torch.models.vo_cnn import (
     DROPOUT_P,
     VOCNN,
@@ -157,6 +169,12 @@ def pack_frame_features(feats: Mapping[str, torch.Tensor],
     dtype, rgb scaled by 1/255 in it (a true division: a cached device
     tensor, not a host scalar, see ``ops/topdown.py::pixel_bins``); with
     ``cache_dtype="int8"``, ``clip(round(x * 127), 0, 127)`` as int8."""
+    return _pack(_pack_parts(feats, cfg), cfg)
+
+
+def _pack_parts(feats: Mapping[str, torch.Tensor],
+                cfg: VOInferenceConfig) -> Tuple[torch.Tensor, ...]:
+    """:func:`pack_frame_features`'s parts, before the ``cat``."""
     parts = []
     for k in _PACK_ORDER:
         if k in feats:
@@ -164,10 +182,50 @@ def pack_frame_features(feats: Mapping[str, torch.Tensor],
             if k == "rgb":
                 v = v / device_const(255.0, v.device, v.dtype)
             parts.append(v)
+    return tuple(parts)
+
+
+def _pack(parts: Sequence[torch.Tensor], cfg: VOInferenceConfig) -> torch.Tensor:
+    """The parts as one block, a new tensor (int8: quantised)."""
     pack = torch.cat(parts, dim=-1)
     if cfg.cache_dtype == "int8":
         pack = torch.clamp(torch.round(pack.float() * 127.0), 0, 127).to(torch.int8)
     return pack
+
+
+def _frame_parts(rgb: torch.Tensor, depth: torch.Tensor,
+                 cfg: VOInferenceConfig) -> Tuple[torch.Tensor, ...]:
+    """The chain a features graph holds: the frame's packed parts."""
+    return _pack_parts(frame_features(rgb, depth, cfg), cfg)
+
+
+# the features' graphs of every caller in the process (at most
+# ``feature_graphs.SLOTS``, the least recently used dropped first)
+_FEATURES_GRAPHS = FeatureGraphs()
+
+
+def features_eager_reason(rgb, depth) -> Optional[str]:
+    """Why :func:`frame_features_packed` must run its chain eagerly: an
+    input not on the card, or not on ``rgb``'s (``"device"``), an input
+    that requires grad (``"grad"``), a stream capture running
+    (``"capturing"``); or None, where a graph may run it.  Grad mode alone
+    is no reason: the chain has no parameters."""
+    if rgb.device.type != "cuda" or depth.device != rgb.device:
+        return "device"
+    if rgb.requires_grad or depth.requires_grad:
+        return "grad"
+    if torch.cuda.is_current_stream_capturing():
+        return "capturing"
+    return None
+
+
+def features_key(rgb, depth, cfg: VOInferenceConfig) -> tuple:
+    """The features graph of a call: the inputs' shapes and dtypes, the
+    config's fields that the chain reads, the card and inference mode."""
+    return (tuple(rgb.shape), rgb.dtype, tuple(depth.shape), depth.dtype,
+            tuple(cfg.observation_space), cfg.obs_transform, cfg.discretized_depth_channels,
+            cfg.topdown_params, cfg.dtype, cfg.cache_dtype, rgb.device.index,
+            torch.is_inference_mode_enabled())
 
 
 def dequantize_rows(rows: torch.Tensor, cfg: VOInferenceConfig) -> torch.Tensor:
@@ -195,10 +253,29 @@ def select_rows(pairs: torch.Tensor, idx: torch.Tensor, cfg: VOInferenceConfig,
 
 def frame_features_packed(rgb: torch.Tensor, depth: torch.Tensor,
                           cfg: VOInferenceConfig) -> torch.Tensor:
-    """Per-frame packed stem block: ``cat(prev_pack, cur_pack)`` is the
-    encoder's stem input (the span ``features``)."""
+    """Per-frame packed stem block, :func:`pack_frame_features` of
+    :func:`frame_features`: ``cat(prev_pack, cur_pack)`` is the encoder's
+    stem input (the span ``features``).
+
+    On the card the chain up to the pack's parts replays from a CUDA graph
+    keyed by :func:`features_key`: a key's first call runs eagerly, its
+    second captures, later ones copy ``rgb`` and ``depth`` into the graph's
+    inputs and replay (``features_graph_eager``, ``_captures``,
+    ``_replays``; a replay adds what the captured call counted, one
+    ``bin_counts`` launch among it).  A call for which
+    :func:`features_eager_reason` finds a reason runs eagerly (counted
+    under ``features_graph_eager``).  The pack's ``cat`` (and int8's
+    quantisation) runs eagerly after the replay, so the result is a fresh
+    tensor, valid after any later call."""
     with TRACER.span("features"):
-        return pack_frame_features(frame_features(rgb, depth, cfg), cfg)
+        if features_eager_reason(rgb, depth) is not None:
+            TRACER.count("features_graph_eager")
+            parts = _frame_parts(rgb, depth, cfg)
+        else:
+            parts = _FEATURES_GRAPHS.call(functools.partial(_frame_parts, cfg=cfg),
+                                          features_key(rgb, depth, cfg), [rgb, depth],
+                                          "features_graph")
+        return _pack(parts, cfg)
 
 
 def pair_from_features(prev_feats: Mapping[str, torch.Tensor],
@@ -486,12 +563,12 @@ class VOEnsemble:
              actions_np, generator: Optional[torch.Generator] = None,
              masks: Optional[DropoutMasks] = None):
         """The VO step of every loop: the new frame's packed features (the
-        span ``features``), paired with the cached previous frame's
-        ``prev_feats``, through each sample's own expert in the config's
-        mode.  Returns (delta ``[B, 3]``, std ``[B, 3]``, cur_feats); det's
-        std is zero, rnd's keep masks are ``masks`` or drawn from
-        ``generator``.  Feed ``cur_feats`` (in the cache's dtype) back on
-        the next call."""
+        span ``features``; :func:`frame_features_packed`, a fresh tensor),
+        paired with the cached previous frame's ``prev_feats``, through
+        each sample's own expert in the config's mode.  Returns (delta
+        ``[B, 3]``, std ``[B, 3]``, cur_feats); det's std is zero, rnd's
+        keep masks are ``masks`` or drawn from ``generator``.  Feed
+        ``cur_feats`` (in the cache's dtype) back on the next call."""
         cur_feats = frame_features_packed(rgb, depth, self.cfg)
         delta, std = self._predict(torch.cat([prev_feats, cur_feats], dim=-1), actions_np,
                                    generator, masks)
